@@ -13,8 +13,13 @@ prints no result.  Phases, each of which raises on failure:
    at N = 2^17 candidates over 64- and 512-row tables, with a full mask,
    the 6-input mask of DES S1 and random mask words, the pivot tile
    kernels (K1 packed, K2 int8 lanes) at (tl, th) = (256, 512) and
-   (512, 512) on real pair-cell operands of a G = 200 state.  Requires 0
-   differing words and times each version (CUDA events, median);
+   (512, 512) on real pair-cell operands of a G = 200 state, the
+   Walsh-score kernel (K5) at B = 64 and 512 gates against a target's
+   spectrum and a random int32 spectrum, and the circuit kernel (K4) on
+   every examples/*.xml and on a G = 200, 8-output state of NOT, 2-input
+   and LUT gates, at W = 2 words and W = 2^22 + 13 (a ragged edge).
+   Requires 0 differing words and times each version (CUDA events), K4 at
+   W = 2^22 and K5 also at a large B;
 3. main path — ``python -m sboxgates_tpu_torch -l -o 0 --seed 1
    sboxes/des_s1.txt`` in process: every output gate is checked against the
    S-box, and the XML bytes against the file the JAX package wrote for the
@@ -32,23 +37,38 @@ prints no result.  Phases, each of which raises on failure:
    b. the full 5-LUT space against a random target on the packed (K1)
       backend at G = 99 and G = 200, candidates/s printed;
    c. a torch.profiler window over 400 tiles of the G = 200 sweep: the
-      device's busy share and its time by kernel.
+      device's busy share and its time by kernel;
+5. spectral candidate order — the CLI runs of SPECTRAL_RUNS with
+   ``--candidate-order spectral``: DES S1 (no stream reordered), a G = 22
+   resume against a planted 7-LUT (K5 scores the 7-LUT stage A's rank
+   chunks) and the G = 99 resume (K5 tiers the pivot tiles); the ``-v -v``
+   stats must show ordered dispatches where SPECTRAL_RUNS says so, and the
+   XML bytes must be the JAX CLI's;
+6. codegen — ``eval_sbox`` on the card (K4) for every examples/*.xml and
+   every state file the CLI runs wrote, against the S-box bits, then the
+   CLI's ``-c`` and ``-d`` on a LUT and a gate circuit against the JAX
+   CLI's text (tests/data/torch_golden/*.cu, *.c, *.dot).
 
-The CLI runs (phases 3 and 4a) are the main path.  Every launch count is
-set to 0 right before each of them and read right after it; each kernel
-must have launched on its own path (K3 on DES S1, K1 and K2 on the G = 99
-resume with their backend), and the resume on one backend must not have
-launched the other's kernel.  Phases 4b and 4c call the sweep directly and
-report their launches in their own lines only.  The last lines are one
-``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The CLI runs (phases 3, 4a, 5) and phase 6 are the main path.  Every launch
+count is set to 0 right before each of them and read right after it; each
+kernel must have launched on its own path (K3 on DES S1, K1 and K2 on the
+G = 99 resume with their backend, K5 on the spectral G = 99 resume, K4 on
+codegen), K5 never on a lexicographic path nor on DES S1 spectral, and
+K1–K3 as often on the lexicographic paths as LEX_LAUNCHES records.  Phases 4b and 4c call the
+sweep directly and report their launches in their own lines only.  The last
+lines are one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -56,6 +76,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden")
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "*.xml")))
+
+# K1-K3 launches of the lexicographic CLI runs, each counted from 0
+# (chip_smoke, PR 1); the spectral-order changes must leave them as they were.
+LEX_LAUNCHES = {
+    "des_s1": {"lut5_filter": 132, "pivot_packed": 0, "pivot_pre": 0},
+    "g99_packed": {"lut5_filter": 0, "pivot_packed": 114, "pivot_pre": 0},
+    "g99_pre": {"lut5_filter": 0, "pivot_packed": 0, "pivot_pre": 114},
+}
 
 # H100 SXM peaks.  HBM bandwidth from NVIDIA's data sheet.  The kernels run
 # 32-bit logic (LOP3) on the integer pipe, which retires 64 results per SM
@@ -117,14 +146,15 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20):
     return total / count / 1e3 if count and total > 0 else None
 
 
-def compare(name, got, want) -> dict:
+def compare(name, got, want, quiet: bool = False) -> dict:
     """Word-for-word comparison of kernel and plain outputs."""
     mism, err = 0, 0
     for g, w in zip(got, want):
         diff = g.long() - w.long()
         mism += int((diff != 0).sum())
         err = max(err, int(diff.abs().max()) if diff.numel() else 0)
-    log(f"  {name}: {mism} differing words, max |diff| {err}")
+    if not quiet or mism:
+        log(f"  {name}: {mism} differing words, max |diff| {err}")
     if mism:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return {"mismatches": mism, "max_abs_err": err}
@@ -144,6 +174,29 @@ def random_state(g: int, seed: int):
     while st.num_gates < g:
         a, b = rng.choice(st.num_gates, size=2, replace=False)
         st.add_gate(funs[int(rng.integers(len(funs)))], int(a), int(b), GATES)
+    return st
+
+
+def mixed_state(g: int = 200, seed: int = 5):
+    """8-input state grown to ``g`` gates with seeded NOT gates, 2-input
+    gates of every function and 3-LUTs; its last 8 gates are the outputs."""
+    import numpy as np
+
+    from sboxgates_tpu_torch.core import boolfunc as bf
+    from sboxgates_tpu_torch.graph.state import GATES, NO_GATE, State
+
+    rng = np.random.default_rng(seed)
+    st = State.init_inputs(8)
+    while st.num_gates < g:
+        a, b, c = (int(x) for x in rng.choice(st.num_gates, size=3, replace=False))
+        kind = int(rng.integers(3))
+        if kind == 0:
+            st.add_gate(bf.NOT, a, NO_GATE, GATES)
+        elif kind == 1:
+            st.add_gate(int(rng.integers(16)), a, b, GATES)
+        else:
+            st.add_lut(int(rng.integers(256)), a, b, c)
+    st.outputs = list(range(g - 8, g))
     return st
 
 
@@ -269,6 +322,8 @@ def phase_parity(dev) -> dict:
             )
     out["pivot_packed"] = res["packed"]
     out["pivot_pre"] = res["pre"]
+    out["walsh_score"] = parity_walsh(dev, rng)
+    out["circuit_eval"] = parity_circuit(dev)
     for name, r in out.items():
         dms = r["device_ms"]
         log(f"  {name}: {r['ms']:.4f} ms per wrapper call (kernel on the device "
@@ -277,40 +332,177 @@ def phase_parity(dev) -> dict:
     return out
 
 
-def phase_main_path(dev) -> None:
+def walsh_cost(b: int) -> dict:
+    """Bytes and 32-bit integer operations of K5 over ``b`` gates: 32 B of
+    table in and 4 B of score out per gate plus the 1 KB spectrum.  The
+    least work: the transform is symmetric, so dot(WHT(x), s) equals
+    dot(x, WHT(s)), also modulo 2^32; WHT(s) is 8 stages of 256 adds, once,
+    and each gate then needs one add per table bit (a sum of +-WHT(s))."""
+    return {"bytes": b * (32 + 4) + 256 * 4, "ops": 8 * 256 + b * 256}
+
+
+def parity_walsh(dev, rng) -> dict:
+    """K5 against its plain version at the search's table buckets, against
+    a target's spectrum and a random int32 spectrum (wrapping products, a
+    floor division of negative sums); timed at B = 512 (the path's shape),
+    B = 64 and, labelled as such, a large B = 2^20 where the bound means
+    something."""
+    import numpy as np
+    import torch
+
+    from sboxgates_tpu_torch.ops import spectral, sweeps
+
+    words = lambda a: sweeps.as_words(a, dev)  # noqa: E731
+    r = {"mismatches": 0, "max_abs_err": 0}
+    timed = {}
+    for b in (64, 512, 1 << 20):
+        tables = words(rng.integers(0, 2**32, size=(b, 8), dtype=np.uint64))
+        specs = {
+            "target": spectral.target_spectrum(
+                words(rng.integers(0, 2**32, size=8, dtype=np.uint64)),
+                words(rng.integers(0, 2**32, size=8, dtype=np.uint64)),
+            ),
+            "random": torch.from_numpy(
+                rng.integers(-2**31, 2**31, size=256).astype("int32")).to(dev),
+        }
+        for sname, spec in specs.items():
+            got = spectral.gate_scores_kernel(tables, spec)
+            want = spectral.gate_scores_plain(tables, spec)
+            c = compare(f"K5 walsh_score B={b} {sname} spectrum", [got], [want])
+            r["mismatches"] += c["mismatches"]
+            r["max_abs_err"] = max(r["max_abs_err"], c["max_abs_err"])
+        spec = specs["target"]
+        run = lambda: spectral.gate_scores_kernel(tables, spec)  # noqa: E731
+        timed[b] = dict(
+            ms=time_ms(run, 50),
+            device_ms=kernel_device_ms(run, "walsh_score_kernel"),
+            plain_ms=time_ms(lambda: spectral.gate_scores_plain(tables, spec), 5),
+            shape=f"B={b}" + (" (large B, off the path)" if b > 512 else ""),
+            **walsh_cost(b),
+        )
+    r.update(timed[512])
+    r["also"] = [timed[64], timed[1 << 20]]
+    return r
+
+
+def circuit_cost(st, w: int) -> dict:
+    """Bytes and operations of K4 over ``w`` words: each input and output
+    word once plus the 8 B-per-gate program, and one 32-bit logic operation
+    (a LOP3) per gate and word."""
+    from sboxgates_tpu_torch.codegen import output_bits
+
+    n_out = len(output_bits(st))
+    return {"bytes": 4 * (st.num_inputs + n_out) * w + 8 * st.num_gates,
+            "ops": (st.num_gates - st.num_inputs) * w}
+
+
+def parity_circuit(dev) -> dict:
+    """K4 against its plain version on every examples/*.xml and on a
+    G = 200, 8-output mixed state, at W = 2 (all 2^6 inputs of a 6-input
+    S-box) and W = 2^22 + 13; timed at W = 2^22 on
+    examples/des_s1_bit0_lut_best.xml and on the mixed state."""
+    import torch
+
+    from sboxgates_tpu_torch.codegen import compile_circuit, compile_cuda
+    from sboxgates_tpu_torch.graph.xmlio import load_state
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    circuits = [(os.path.basename(p), load_state(p)) for p in EXAMPLES]
+    circuits.append(("mixed G=200", mixed_state()))
+    r = {"mismatches": 0, "max_abs_err": 0}
+    for name, st in circuits:
+        fn, plain = compile_cuda(st, dev), compile_circuit(st)
+        for w in (2, (1 << 22) + 13):
+            x = torch.randint(-2**31, 2**31, (st.num_inputs, w), dtype=torch.int32,
+                              device=dev, generator=gen)
+            c = compare(f"K4 circuit_eval {name} W={w}", [fn(x)], [plain(x)],
+                        quiet=True)
+            r["mismatches"] += c["mismatches"]
+            r["max_abs_err"] = max(r["max_abs_err"], c["max_abs_err"])
+    log(f"  K4 circuit_eval: {len(circuits)} circuits x 2 widths, "
+        f"{r['mismatches']} differing words")
+    timed = {}
+    for name, st in (("des_s1_bit0_lut_best", load_state(os.path.join(
+            ROOT, "examples", "des_s1_bit0_lut_best.xml"))), ("mixed G=200", circuits[-1][1])):
+        w = 1 << 22
+        x = torch.randint(-2**31, 2**31, (st.num_inputs, w), dtype=torch.int32,
+                          device=dev, generator=gen)
+        fn, plain = compile_cuda(st, dev), compile_circuit(st)
+        timed[name] = dict(
+            ms=time_ms(lambda: fn(x), 30),
+            device_ms=kernel_device_ms(lambda: fn(x), "circuit_eval_kernel"),
+            plain_ms=time_ms(lambda: plain(x), 3),
+            shape=f"{name} ({st.num_gates} gates) W=2^22",
+            **circuit_cost(st, w),
+        )
+    r.update(timed["des_s1_bit0_lut_best"])
+    r["also"] = [timed["mixed G=200"]]
+    return r
+
+
+def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str):
+    """``python -m sboxgates_tpu_torch <argv> -v -v --output-dir <dir>`` in
+    process, on ``dev``: one state file; every output gate in it is
+    checked against the S-box ``box``, and its bytes against ``golden``
+    (the file the JAX CLI writes for the same command).  Returns the state
+    file's path and the run's ``stats:`` counters."""
     from sboxgates_tpu_torch import cli
     from sboxgates_tpu_torch.core import ttable as tt
     from sboxgates_tpu_torch.graph.xmlio import load_state
     from sboxgates_tpu_torch.utils.sbox import load_sbox
 
-    box = os.path.join(ROOT, "sboxes", "des_s1.txt")
-    golden = os.path.join(GOLDEN, "des_s1_l_o0_seed1.xml")
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        rc = cli.main(["-l", "-o", "0", "--seed", "1", "--device", dev.type,
-                       "--output-dir", d, box])
-        wall = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"main path exited {rc}")
-        names = sorted(n for n in os.listdir(d) if n.endswith(".xml"))
-        if len(names) != 1:
-            raise AssertionError(f"expected one state file, found {names}")
-        path = os.path.join(d, names[0])
-        st = load_state(path)
-        sbox, n_in = load_sbox(box)
-        mask = tt.mask_table(n_in)
-        for bit, gid in enumerate(st.outputs):
-            if gid == 0xFFFF:
-                continue
-            if not bool(tt.eq_mask(st.table(gid), tt.target_table(sbox, bit), mask)):
-                raise AssertionError(f"output {bit} gate {gid} misses the S-box")
-        with open(path, "rb") as f, open(golden, "rb") as g:
-            same = f.read() == g.read()
-        log(f"phase 3 main path: {names[0]} in {wall:.2f} s, "
-            f"{st.num_gates - st.num_inputs} gates, outputs verified, "
-            f"XML {'byte-identical to' if same else 'DIFFERS from'} the golden file")
-        if not same:
-            raise AssertionError("main path XML differs from the golden file")
+    d = os.path.join(outdir, label.split()[-1])
+    os.makedirs(d)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv, "-v", "-v", "--device", dev.type, "--output-dir", d, box])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{label} exited {rc}")
+    stats = {}
+    for line in buf.getvalue().splitlines():
+        if line.startswith("stats: "):
+            stats = {k: int(v) for k, v in (kv.split("=") for kv in line[7:].split())}
+    names = sorted(n for n in os.listdir(d) if n.endswith(".xml"))
+    if len(names) != 1:
+        raise AssertionError(f"{label}: expected one state file, found {names}")
+    path = os.path.join(d, names[0])
+    st = load_state(path)
+    sbox, n_in = load_sbox(box)
+    for bit, gid in enumerate(st.outputs):
+        if gid != 0xFFFF and not bool(tt.eq_mask(
+                st.table(gid), tt.target_table(sbox, bit), tt.mask_table(n_in))):
+            raise AssertionError(f"{label}: output {bit} gate {gid} misses the S-box")
+    with open(path, "rb") as f, open(golden, "rb") as g:
+        same = f.read() == g.read()
+    log(f"{label}: {names[0]} in {wall:.2f} s, "
+        f"{st.num_gates - st.num_inputs} gates, outputs verified, XML "
+        f"{'byte-identical to' if same else 'DIFFERS from'} the golden file")
+    if not same:
+        raise AssertionError(f"{label}: XML differs from {golden}")
+    return path, stats
+
+
+DES_ARGV = ["-l", "-o", "0", "--seed", "1"]
+DES_BOX = os.path.join(ROOT, "sboxes", "des_s1.txt")
+G99_ARGV = ["-l", "-o", "0", "--seed", "1", "-g",
+            os.path.join(GOLDEN, "rijndael_g99_state.xml")]
+G99_BOX = os.path.join(GOLDEN, "rijndael_planted_bit0.txt")
+# A G = 22 state (planted7_state) resumed against an S-box whose output bit
+# 0 is a planted 7-LUT of its gates (planted7_sbox): the head misses, and
+# the 7-LUT stage A sweeps C(22,7) = 170544 ranks in 6 stream chunks.
+G22_ARGV = ["-l", "-o", "0", "--seed", "1", "-g",
+            os.path.join(GOLDEN, "rijndael_g22_state.xml")]
+G22_BOX = os.path.join(GOLDEN, "rijndael_planted7_bit0.txt")
+
+
+def phase_main_path(dev, outdir: str) -> str:
+    """``-l -o 0 --seed 1 sboxes/des_s1.txt``: the golden file
+    tests/data/torch_golden/des_s1_l_o0_seed1.xml."""
+    return run_cli(dev, "phase 3 main path des_s1", DES_ARGV, DES_BOX,
+                   os.path.join(GOLDEN, "des_s1_l_o0_seed1.xml"), outdir)[0]
 
 
 def planted_sbox(st, gates=(90, 91, 92, 93, 94)):
@@ -328,46 +520,113 @@ def planted_sbox(st, gates=(90, 91, 92, 93, 94)):
     return (sbox & 0xFE) | tt.to_bits(target).astype(np.uint8)
 
 
-def phase_resume_pivot(dev, backend: str) -> None:
-    """``python -m sboxgates_tpu_torch -l -o 0 --seed 1 --pivot-backend
-    <backend> -g <state> <sbox>`` in process: the CLI resumes from a saved
-    G = 99 state (random_state(99, 11)) against an S-box whose output bit 0
-    is a planted 5-LUT of its gates (planted_sbox).  The node head finds no
-    gate or 3-LUT, and the pivot sweep finds a 5-LUT.  The XML must be the
-    file the JAX CLI writes for the same command with its native runtime
-    off, whichever tile kernel ran."""
-    from sboxgates_tpu_torch import cli
+def planted7_state(g: int = 22):
+    """8-input state grown to ``g`` gates with seeded AND/OR/XOR/A_AND_NOT_B
+    gates (the construction of the JAX package's tests/planted.py
+    build_planted_lut7)."""
+    import numpy as np
+
+    from sboxgates_tpu_torch.core import boolfunc as bf
+    from sboxgates_tpu_torch.graph.state import GATES, State
+
+    rng = np.random.default_rng(3)
+    st = State.init_inputs(8)
+    funs = [bf.AND, bf.OR, bf.XOR, bf.A_AND_NOT_B]
+    while st.num_gates < g:
+        a, b = rng.choice(st.num_gates, size=2, replace=False)
+        st.add_gate(funs[rng.integers(len(funs))], int(a), int(b), GATES)
+    return st
+
+
+def planted7_sbox(st):
+    """sboxes/rijndael.txt with output bit 0 replaced by the planted 7-LUT
+    0xCA(0x96(g9, g12, g17), 0xE8(g10, g15, g21), g19) of ``st``."""
+    import numpy as np
+
     from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.utils.sbox import load_sbox
+
+    outer = tt.eval_lut(0x96, st.table(9), st.table(12), st.table(17))
+    middle = tt.eval_lut(0xE8, st.table(10), st.table(15), st.table(21))
+    target = tt.eval_lut(0xCA, outer, middle, st.table(19))
+    sbox, _ = load_sbox(os.path.join(ROOT, "sboxes", "rijndael.txt"))
+    return (sbox & 0xFE) | tt.to_bits(target).astype(np.uint8)
+
+
+def phase_resume_pivot(dev, backend: str, outdir: str) -> str:
+    """``-l -o 0 --seed 1 --pivot-backend <backend> -g <state> <sbox>``: the
+    CLI resumes from a saved G = 99 state (random_state(99, 11)) against an
+    S-box whose output bit 0 is a planted 5-LUT of its gates
+    (planted_sbox).  The node head finds no gate or 3-LUT, and the pivot
+    sweep finds a 5-LUT.  The XML must be the file the JAX CLI writes for
+    the same command with its native runtime off, whichever tile kernel
+    ran."""
+    return run_cli(
+        dev, f"phase 4a resume G=99 g99_{backend}",
+        G99_ARGV + ["--pivot-backend", backend], G99_BOX,
+        os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml"), outdir,
+    )[0]
+
+
+def phase_spectral(dev, name: str, outdir: str) -> str:
+    """A CLI run with ``--candidate-order spectral`` (phase 5): the XML is
+    the JAX CLI's for the same command, and the score tiers reordered at
+    least one stream (``order_tier_dispatches`` > 0) where SPECTRAL_RUNS
+    says they must, none where it says they cannot."""
+    argv, box, golden, ordered = SPECTRAL_RUNS[name]
+    path, stats = run_cli(dev, f"phase 5 spectral {name}", argv, box, golden, outdir)
+    log(f"  {name} stats: order_tier_dispatches="
+        f"{stats.get('order_tier_dispatches', 0)} order_first_hit_tier="
+        f"{stats.get('order_first_hit_tier', 0)} lut5_candidates="
+        f"{stats.get('lut5_candidates', 0)} lut7_candidates="
+        f"{stats.get('lut7_candidates', 0)}")
+    if (stats.get("order_tier_dispatches", 0) > 0) != ordered:
+        raise AssertionError(f"{name}: ordered dispatches "
+                             f"{stats.get('order_tier_dispatches', 0)}, expected "
+                             f"{'some' if ordered else 'none'}")
+    return path
+
+
+def phase_codegen(dev, written) -> None:
+    """Phase 6: ``eval_sbox`` on the card (K4) for every examples/*.xml and
+    every state file of ``written`` [(path, sbox path)], against the S-box
+    bits of the outputs each circuit has; then ``-c`` and ``-d`` on a LUT
+    and a gate circuit against the JAX CLI's text."""
+    import numpy as np
+
+    from sboxgates_tpu_torch import cli
+    from sboxgates_tpu_torch.codegen import eval_sbox
     from sboxgates_tpu_torch.graph.xmlio import load_state
     from sboxgates_tpu_torch.utils.sbox import load_sbox
 
-    state = os.path.join(GOLDEN, "rijndael_g99_state.xml")
-    box = os.path.join(GOLDEN, "rijndael_planted_bit0.txt")
-    golden = os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml")
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        rc = cli.main(["-l", "-o", "0", "--seed", "1", "--device", dev.type,
-                       "--pivot-backend", backend, "-g", state,
-                       "--output-dir", d, box])
-        wall = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"resumed search exited {rc}")
-        names = os.listdir(d)
-        if len(names) != 1:
-            raise AssertionError(f"expected one state file, found {names}")
-        path = os.path.join(d, names[0])
-        res = load_state(path)
-        with open(path, "rb") as f, open(golden, "rb") as g:
-            same = f.read() == g.read()
-    sbox, _ = load_sbox(box)
-    if not bool(tt.eq_mask(res.table(res.outputs[0]), tt.target_table(sbox, 0),
-                           tt.mask_table(8))):
-        raise AssertionError("resumed search's output gate misses the S-box")
-    log(f"phase 4a resume G=99 (-g, {backend}): {names[0]} in {wall:.2f} s, "
-        f"{res.num_gates - res.num_inputs} gates, output verified, XML "
-        f"{'byte-identical to' if same else 'DIFFERS from'} the golden file")
-    if not same:
-        raise AssertionError("resumed search's XML differs from the golden file")
+    def sbox_of(path):
+        box = "_".join(os.path.basename(path).split("_")[:2])
+        return os.path.join(ROOT, "sboxes", box + ".txt")
+
+    circuits = [(p, sbox_of(p)) for p in EXAMPLES] + list(written)
+    for path, box in circuits:
+        st = load_state(path)
+        sbox, n = load_sbox(box)
+        bits = sum(1 << b for b in range(8) if st.outputs[b] != 0xFFFF)
+        got = eval_sbox(st, dev)
+        if not np.array_equal(got & bits, sbox[: 1 << n] & bits):
+            raise AssertionError(f"eval_sbox on the card: {path} misses {box}")
+    log(f"phase 6 codegen: eval_sbox on the card reproduced the S-box bits of "
+        f"{len(circuits)} circuits ({len(written)} written by the CLI runs)")
+    for flag, name, golden in (
+        ("-c", "des_s1_bit0_lut_best", "des_s1_bit0_lut_best.cu"),
+        ("-d", "des_s1_bit0_lut_best", "des_s1_bit0_lut_best.dot"),
+        ("-c", "des_s1_bit0_17gates", "des_s1_bit0_17gates.c"),
+        ("-d", "des_s1_bit0_17gates", "des_s1_bit0_17gates.dot"),
+    ):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([flag, os.path.join(ROOT, "examples", name + ".xml")])
+        with open(os.path.join(GOLDEN, golden)) as f:
+            same = rc == 0 and buf.getvalue() == f.read()
+        log(f"  {flag} {name}: {'identical to' if same else 'DIFFERS from'} {golden}")
+        if not same:
+            raise AssertionError(f"{flag} {name} differs from the JAX CLI's text")
 
 
 def phase_pivot(dev) -> dict:
@@ -466,6 +725,48 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
 
 
+# Phase 5's CLI runs: (argv, S-box, golden file of the JAX CLI, whether a
+# stream must be reordered).  DES S1 at seed 1 never reaches an ordered
+# stream (its nodes stay below G = 19, where the 7-LUT stage A first spans
+# two chunks, and below G = 50, where the pivot sweep starts), so it must
+# write the lexicographic run's file; the planted G = 22 resume is the
+# smallest configuration found that reorders a stream (the 7-LUT stage A),
+# and the G = 99 resume reorders the pivot tiles.
+SPECTRAL = ["--candidate-order", "spectral"]
+SPECTRAL_RUNS = {
+    "des_s1_spectral": (DES_ARGV + SPECTRAL, DES_BOX,
+                        os.path.join(GOLDEN, "des_s1_l_o0_seed1.xml"), False),
+    "g22_spectral": (G22_ARGV + SPECTRAL, G22_BOX,
+                     os.path.join(GOLDEN, "rijndael_planted7_l_o0_seed1_g22_spectral.xml"),
+                     True),
+    "g99_spectral": (G99_ARGV + SPECTRAL, G99_BOX,
+                     os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99_spectral.xml"),
+                     True),
+}
+
+# Each kernel: (route, source, TPU kernel replaced, home path).
+KERNELS = {
+    "lut5_filter": ("cuda", "sboxgates_tpu_torch/csrc/lut5_filter.cu",
+                    "sboxgates_tpu/ops/pallas_filter.py:58", "des_s1"),
+    "pivot_packed": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
+                     "sboxgates_tpu/ops/pallas_pivot.py:133", "g99_packed"),
+    "pivot_pre": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
+                  "sboxgates_tpu/ops/pallas_pivot.py:218", "g99_pre"),
+    "walsh_score": ("cuda", "sboxgates_tpu_torch/csrc/walsh_score.cu",
+                    "sboxgates_tpu/ops/spectral.py:119", "g99_spectral"),
+    "circuit_eval": ("cuda", "sboxgates_tpu_torch/csrc/circuit_eval.cu",
+                     "sboxgates_tpu/codegen/pallas_kernel.py:26", "codegen"),
+}
+
+
+def bound(r: dict):
+    """(bound_ms, bound_by) of a timed shape: the larger of its bytes over
+    the HBM rate and its 32-bit operations over the integer pipe's rate."""
+    t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
+    t_ops = r["ops"] / INT32_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     import torch
 
@@ -474,7 +775,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile
+    from sboxgates_tpu_torch.codegen import cuda_kernel
+    from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile, spectral
 
     dev = torch.device("cuda", 0)
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
@@ -491,54 +793,77 @@ def main() -> int:
         after."""
         lut5_filter.launches = 0
         pivot_tile.launches.update(packed=0, pre=0)
+        spectral.launches = 0
+        cuda_kernel.launches = 0
         drive()
         counts = {
             "lut5_filter": lut5_filter.launches,
             "pivot_packed": pivot_tile.launches["packed"],
             "pivot_pre": pivot_tile.launches["pre"],
+            "walsh_score": spectral.launches,
+            "circuit_eval": cuda_kernel.launches,
         }
         log(f"  launches on path {name}: {counts}")
         return counts
 
-    paths = {
-        "des_s1": on_path("des_s1", lambda: phase_main_path(dev)),
-        "g99_packed": on_path("g99_packed", lambda: phase_resume_pivot(dev, "packed")),
-        "g99_pre": on_path("g99_pre", lambda: phase_resume_pivot(dev, "pre")),
-    }
-    # The path whose run each kernel's "launches" reports.
-    home = {"lut5_filter": "des_s1", "pivot_packed": "g99_packed",
-            "pivot_pre": "g99_pre"}
-    for name, path in home.items():
-        if paths[path][name] <= 0:
-            raise AssertionError(f"{name} never launched on path {path}")
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        written = []
+
+        def cli_path(drive, box):
+            written.append((drive(), box))
+
+        paths = {
+            "des_s1": on_path("des_s1", lambda: cli_path(
+                lambda: phase_main_path(dev, outdir), DES_BOX)),
+            "g99_packed": on_path("g99_packed", lambda: cli_path(
+                lambda: phase_resume_pivot(dev, "packed", outdir), G99_BOX)),
+            "g99_pre": on_path("g99_pre", lambda: cli_path(
+                lambda: phase_resume_pivot(dev, "pre", outdir), G99_BOX)),
+        }
+        for name, (_, box, _, _) in SPECTRAL_RUNS.items():
+            paths[name] = on_path(name, lambda n=name, b=box: cli_path(
+                lambda: phase_spectral(dev, n, outdir), b))
+        paths["codegen"] = on_path("codegen", lambda: phase_codegen(dev, written))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    for name, (_, _, _, home) in KERNELS.items():
+        if paths[home][name] <= 0:
+            raise AssertionError(f"{name} never launched on path {home}")
     if paths["g99_packed"]["pivot_pre"] or paths["g99_pre"]["pivot_packed"]:
         raise AssertionError("--pivot-backend did not pick the tile kernel")
+    if paths["des_s1_spectral"]["walsh_score"] or not paths["g22_spectral"]["walsh_score"]:
+        raise AssertionError("walsh_score launched off an ordered stream, or not on one")
+    for path, want in LEX_LAUNCHES.items():
+        got = {k: paths[path][k] for k in want}
+        if got != want or paths[path]["walsh_score"]:
+            raise AssertionError(
+                f"lexicographic path {path} launched {paths[path]}, expected "
+                f"{want} and no walsh_score")
     rates = phase_pivot(dev)
     phase_profile_sweep(dev)
 
-    meta = {
-        "lut5_filter": ("cuda", "sboxgates_tpu_torch/csrc/lut5_filter.cu",
-                        "sboxgates_tpu/ops/pallas_filter.py:58"),
-        "pivot_packed": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
-                         "sboxgates_tpu/ops/pallas_pivot.py:133"),
-        "pivot_pre": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
-                      "sboxgates_tpu/ops/pallas_pivot.py:218"),
-    }
     kernels = []
-    for name, (route, source, replaces) in meta.items():
+    for name, (route, source, replaces, home) in KERNELS.items():
         r = par[name]
-        t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
-        t_ops = r["ops"] / INT32_OPS_S * 1e3
+        bound_ms, bound_by = bound(r)
+        also = []
+        for extra in r.get("also", []):
+            b_ms, b_by = bound(extra)
+            also.append({k: extra[k] for k in ("shape", "ms", "device_ms", "plain_ms")}
+                        | {"bound_ms": b_ms, "bound_by": b_by})
+            log(f"  {name} at {extra['shape']}: {extra['ms']:.4f} ms per call "
+                f"(device {extra['device_ms']}), plain {extra['plain_ms']:.3f} ms, "
+                f"bound {b_ms:.5f} ms by {b_by}")
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": paths[home[name]][name],
-            "path": home[name],
+            "replaces": replaces, "launches": paths[home][name],
+            "path": home,
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "mismatches": r["mismatches"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": r["shape"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": r["shape"], "also": also,
         })
         if "tc_ops" in r:
             log(f"  {name}: int8 tensor-core bound of the TPU formulation "

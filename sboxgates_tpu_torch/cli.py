@@ -12,9 +12,11 @@ hand-written kernels and fails when no card is usable; ``cpu`` must be asked
 for.  ``--pivot-backend`` picks the pivot 5-LUT tile kernel, the
 counterpart of the JAX package's ``SBG_PIVOT_BACKEND``: ``packed`` (the
 default) launches it on packed cell words, ``pre`` on int8 lanes expanded
-before the launch; both give the same files.  Gate mode (no ``-l``) and the
-``-c``/``-d`` converters are rejected with one line each: they are not part
-of the port yet.
+before the launch; both give the same files.  ``--candidate-order
+spectral`` sweeps the candidate chunks and pivot tiles in Walsh-score tiers
+best-first (the Walsh-score kernel K5 on the card).  ``-c``/``-d`` convert a
+saved state to C/CUDA source or Graphviz DOT, the JAX package's text.  Gate
+mode (no ``-l``) is rejected with one line: it is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -41,9 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-a", "--available-gates", type=int, default=None, metavar="NUM",
                    help="bitfield of available 2-input gate types (default AND+OR+XOR = 194)")
     p.add_argument("-c", "--convert-c", action="store_true",
-                   help="convert an XML state file to C/CUDA source (not ported)")
+                   help="convert an XML state file to C/CUDA source")
     p.add_argument("-d", "--convert-dot", action="store_true",
-                   help="convert an XML state file to Graphviz DOT (not ported)")
+                   help="convert an XML state file to Graphviz DOT")
     p.add_argument("-g", "--graph", metavar="FILE", default=None,
                    help="resume from a saved XML state")
     p.add_argument("-i", "--iterations", type=int, default=1, metavar="NUM",
@@ -70,6 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pivot-backend", choices=("packed", "pre"), default="packed",
                    help="pivot 5-LUT tile kernel: packed cell words (default) "
                         "or int8 lanes expanded before the launch; same results")
+    p.add_argument("--candidate-order", default="lex", metavar="ORDER",
+                   help="sweep-stream candidate order: 'lex' (default) "
+                        "streams rank chunks lexicographically; "
+                        "'spectral' scores the gate tables against the "
+                        "masked target on device (Walsh correlation, "
+                        "ops/spectral.py) and sweeps the score tiers "
+                        "best-first.  Ordering only — run-to-exhaustion "
+                        "visits the identical hit set either way, and "
+                        "the order is a deterministic function of the "
+                        "search state (no RNG, no wall clock), so "
+                        "resume stays bit-identical")
     return p
 
 
@@ -99,16 +112,36 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _err("SAT metric can not be combined with LUT graph generation.")
     if not args.input:
         return _err("Input file name argument missing.")
-    if len(args.input) > 1:
+    multibox = len(args.input) > 1
+    if multibox and (args.convert_c or args.convert_dot):
+        return _err("Cannot convert more than one file.")
+    if multibox and args.graph is not None:
+        return _err("Cannot combine -g with multiple S-box files.")
+    if args.candidate_order not in ("lex", "spectral"):
+        return _err(f"Bad candidate order value: {args.candidate_order}")
+    if multibox:
         return _err(
             "Error: several S-box files in one run are not ported yet; run "
             "one file per process (or use python -m sboxgates_tpu)."
         )
+
+    # Conversion mode: deserialize -> emit, no search (sboxgates.c:1097-1114).
     if args.convert_c or args.convert_dot:
-        return _err(
-            "Error: -c/-d conversion is not ported yet; use "
-            "python -m sboxgates_tpu -c/-d."
-        )
+        from .codegen import c_function_text, digraph_text
+
+        try:
+            st = load_state(args.input[0])
+        except (OSError, StateLoadError) as e:
+            return _err(f"Error when reading state file {args.input[0]}: {e}")
+        if args.convert_c:
+            try:
+                sys.stdout.write(c_function_text(st))
+            except ValueError as e:
+                return _err(f"Error: {e}")
+        else:
+            sys.stdout.write(digraph_text(st))
+        return 0
+
     if not args.lut:
         return _err(
             "Error: gate mode (no -l) is not ported yet; pass -l for a LUT "
@@ -155,6 +188,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         seed=args.seed,
         device=args.device,
         pivot_backend=args.pivot_backend,
+        candidate_order=args.candidate_order,
     )
     try:
         ctx = SearchContext(opt)

@@ -130,3 +130,36 @@ def pad_rows(a: np.ndarray, size: int, fill: int = 0) -> tuple:
         return a, valid
     pad = np.full((size - valid,) + a.shape[1:], fill, dtype=a.dtype)
     return np.concatenate([a, pad], axis=0), valid
+
+
+def tier_segments(chunk_scores, n_chunks: int, tiers: int = 4) -> list:
+    """Best-first dispatch order over chunk ranges, as contiguous segments.
+
+    The per-chunk scores of ``sweeps.spectral_score_stream`` are quantized
+    into ``tiers`` integer tiers, and each maximal run of same-tier chunks
+    becomes one segment ``(lo_chunk, hi_chunk, tier)``; the list is ordered
+    tier descending, then lo ascending.  The streams sweep each segment
+    through their ordinary (start, stop) operands, so chunk boundaries —
+    and the per-chunk verdicts — never move.  The segments PARTITION
+    ``[0, n_chunks)`` (asserted: scores reorder the sweep, they never
+    shrink it), and are a pure function of the scores."""
+    from .spectral import quantize_tiers
+
+    s = np.asarray(chunk_scores, dtype=np.int64)[:n_chunks]
+    assert s.shape[0] == n_chunks, (s.shape, n_chunks)
+    if n_chunks <= 0:
+        return []
+    tier = quantize_tiers(s, tiers)
+    runs = []
+    lo = 0
+    for i in range(1, n_chunks):
+        if tier[i] != tier[lo]:
+            runs.append((lo, i, int(tier[lo])))
+            lo = i
+    runs.append((lo, n_chunks, int(tier[lo])))
+    runs.sort(key=lambda r: (-r[2], r[0]))
+    covered = sorted((a, b) for a, b, _ in runs)
+    assert covered[0][0] == 0 and covered[-1][1] == n_chunks and all(
+        covered[i][1] == covered[i + 1][0] for i in range(len(covered) - 1)
+    ), f"tier_segments must partition [0, {n_chunks}): {covered}"
+    return runs

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core import ttable as tt
-from . import combinatorics
+from . import combinatorics, spectral
 from .lut5_filter import cell_requirements, lut5_filter_cells, pack_bits
 from .pivot_tile import (
     PIVOT_CELLBITS,
@@ -436,6 +436,44 @@ def feasible_stream(tables, binom, g, target, mask, excl, start, total, *, k, ch
         cstart, nxt = nxt, nxt + chunk
     examined = min(nxt, total) - int(start)
     return np.asarray([int(found), cstart, examined], np.int32), feas, r1, r0
+
+
+#: Ranks unranked at once by :func:`spectral_score_stream` (whole chunks).
+SCORE_BATCH_RANKS = 1 << 20
+
+
+def spectral_score_stream(tables, binom, g, target, mask, excl, total, *, k, chunk,
+                          n_chunks):
+    """Per-chunk spectral scores of the whole rank space: int32[n_chunks].
+
+    The best-first prepass: the gate tables are Walsh-scored against the
+    masked target (kernel K5 on the card, :func:`spectral.gate_scores`),
+    then every chunk of combination ranks is unranked and reduced to
+    ``max over combos of (sum of element gate scores)``; excluded and
+    out-of-range rows score -1, and chunks past ``ceil(total / chunk)``
+    come back -1.  The JAX package walks the chunks one at a time; here
+    they go in batches of whole chunks, with the same result."""
+    dev = tables.device
+    total = int(total)
+    gscores = spectral.gate_scores(tables, target, mask)
+    out = torch.full((n_chunks,), -1, dtype=_I32, device=dev)
+    n_real = min(-(-total // chunk), n_chunks)
+    per = max(1, SCORE_BATCH_RANKS // chunk)
+    ex = excl.long()[None, None, :]
+    for c0 in range(0, n_real, per):
+        c1 = min(c0 + per, n_real)
+        ranks = _ranks(c0 * chunk, (c1 - c0) * chunk, dev)
+        combos = _unrank_combos(binom, g, k, torch.clamp(ranks, max=total - 1))
+        keep = (ranks < total) & ~(combos[:, :, None] == ex).any(dim=2).any(dim=0)
+        s = gscores[combos].sum(dim=0, dtype=_I32)             # <= k * 256
+        s = torch.where(keep, s, torch.full_like(s, -1))
+        out[c0:c1] = s.reshape(c1 - c0, chunk).amax(dim=1)
+    return out
+
+
+#: The pivot sweep's tile scorer runs the gate-score stage alone (tiles key
+#: on their pivot gate, so per-gate scores tier them with no rank arithmetic).
+spectral_gate_scores = spectral.gate_scores
 
 
 def _lut3_stream_core(tables, binom, g, target, mask, excl, start, total, seed, chunk):

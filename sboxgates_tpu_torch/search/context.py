@@ -46,6 +46,9 @@ STREAM_CHUNK = {2: 1 << 14, 3: 1 << 15, 5: 1 << 17, 7: 1 << 15}
 # the rank-chunk stream (and the fused node head leaves the 5-LUT out).
 PIVOT_MIN_TOTAL = 1 << 21
 
+# Values of Options.candidate_order.
+CANDIDATE_ORDERS = ("lex", "spectral")
+
 # Rows the fused head's 5-LUT solver takes per chunk.
 LUT5_HEAD_SOLVE_ROWS = 1024
 
@@ -84,6 +87,11 @@ class Options:
     # Pivot tile kernel: "packed" (K1, packed cell words) or "pre" (K2,
     # int8 lanes expanded before the launch).  Identical results.
     pivot_backend: str = "packed"
+    # Candidate sweep order (--candidate-order, ops/spectral.py): "lex"
+    # sweeps rank chunks (and pivot tiles) in order; "spectral" sweeps their
+    # Walsh-score tiers best-first.  Ordering only: an exhaustive sweep
+    # visits the same hit set either way.
+    candidate_order: str = "lex"
 
 
 @dataclass(frozen=True)
@@ -180,6 +188,8 @@ class SearchContext:
         self.device = resolve_device(opt.device)
         if opt.pivot_backend not in sweeps.PIVOT_BACKENDS:
             raise ValueError(f"unknown pivot backend {opt.pivot_backend!r}")
+        if opt.candidate_order not in CANDIDATE_ORDERS:
+            raise ValueError(f"unknown candidate order {opt.candidate_order!r}")
         self.rng = np.random.default_rng(opt.seed)
         self.avail_gates = bf.create_avail_gates(opt.avail_gates_bitfield)
         self.avail_not = (
@@ -309,14 +319,17 @@ class SearchContext:
 
     def feasible_stream_driver(
         self, st: State, target, mask, inbits, k: int, start: int = 0,
-        prebuilt=None,
+        prebuilt=None, stop=None,
     ):
         """One stream sweeping combination ranks [start, total) to the first
-        chunk with a feasible k-tuple.  Returns (found, chunk_start,
-        feasible, req1, req0, examined, chunk)."""
+        chunk with a feasible k-tuple; ``stop`` bounds it to [start, stop)
+        (the best-first drivers sweep one tier segment at a time).  Returns
+        (found, chunk_start, feasible, req1, req0, examined, chunk)."""
         if prebuilt is None:
             prebuilt = self.stream_args(st, target, mask, inbits, k)
         base_args, total, chunk = prebuilt
+        if stop is not None:
+            total = min(int(stop), total)
         verdict, feas, r1, r0 = sweeps.feasible_stream(
             *base_args, start, total, k=k, chunk=chunk
         )

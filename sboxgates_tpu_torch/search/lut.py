@@ -21,7 +21,7 @@ import torch
 
 from ..graph.state import NO_GATE, State, check_num_gates_possible
 from ..ops import combinatorics as comb
-from ..ops import sweeps
+from ..ops import spectral, sweeps
 from .context import (
     LUT5_CHUNK,
     LUT5_SOLVE_CHUNK,
@@ -256,30 +256,47 @@ def _lut5_search_pivot(
             splits, w_tab, m_tab,
         )
 
-    start_t = 0
-    while start_t < t_real:
-        v = sweeps.lut5_pivot_stream(
-            *args, start_t, t_real, jw, jm, ctx.next_seed(), tl=tl, th=th,
-            backend=backend,
-        )
-        status, next_t = int(v[0]), int(v[8])
-        ctx.stats.inc(
-            "lut5_candidates", int(size_cum[min(next_t, t_real)] - size_cum[start_t])
-        )
-        if status == 0:
-            break
-        if status == 1:
-            return _decode_lut5(
-                ctx, combo_at(int(v[1]), int(v[2]), int(v[3])), int(v[4]),
-                int(v[5]), _unpack32(int(v[6]) & 0xFFFFFFFF),
-                _unpack32(int(v[7]) & 0xFFFFFFFF), splits, w_tab, m_tab,
+    # Spectral best-first tile order: each tile keys on its pivot gate, so
+    # one gate-score pass tiers all tiles (no rank arithmetic, no bound on
+    # the space).  One stream (and one seed) per segment window.
+    segments = None
+    if ctx.opt.candidate_order == "spectral" and t_real > 1:
+        segments = _order_tile_segments(ctx, args[0], target, mask, descs, t_real)
+    ordered = segments is not None
+    if not ordered:
+        segments = [(0, t_real, 0)]
+    for seg_lo, seg_hi, tier in segments:
+        start_t = seg_lo
+        while start_t < seg_hi:
+            v = sweeps.lut5_pivot_stream(
+                *args, start_t, seg_hi, jw, jm, ctx.next_seed(), tl=tl, th=th,
+                backend=backend,
             )
-        # status 2: more feasible tuples in tile next_t - 1 than the
-        # in-stream solver rows — solve that tile's tuples in full.
-        res = redrive_tile(next_t - 1)
-        if res is not None:
-            return res
-        start_t = next_t
+            if ordered:
+                ctx.stats.inc("order_tier_dispatches")
+            status, next_t = int(v[0]), int(v[8])
+            ctx.stats.inc(
+                "lut5_candidates",
+                int(size_cum[min(next_t, t_real)] - size_cum[start_t]),
+            )
+            if status == 0:
+                break  # segment exhausted; on to the next tier segment
+            if status == 1:
+                if ordered:
+                    ctx.stats.inc("order_first_hit_tier", tier)
+                return _decode_lut5(
+                    ctx, combo_at(int(v[1]), int(v[2]), int(v[3])), int(v[4]),
+                    int(v[5]), _unpack32(int(v[6]) & 0xFFFFFFFF),
+                    _unpack32(int(v[7]) & 0xFFFFFFFF), splits, w_tab, m_tab,
+                )
+            # status 2: more feasible tuples in tile next_t - 1 than the
+            # in-stream solver rows — solve that tile's tuples in full.
+            res = redrive_tile(next_t - 1)
+            if res is not None:
+                if ordered:
+                    ctx.stats.inc("order_first_hit_tier", tier)
+                return res
+            start_t = next_t
     return None
 
 
@@ -301,34 +318,53 @@ def lut5_search(ctx: SearchContext, st: State, target, mask, inbits) -> Optional
 def _lut5_stream_loop(ctx, st, target, mask, inbits, start) -> Optional[dict]:
     """Fused 5-LUT sweep from rank ``start``: filter + compaction +
     decomposition solve, one verdict per stream.  Also the resume path
-    after a fused-head solver overflow."""
+    after a fused-head solver overflow.
+
+    Under ``candidate_order="spectral"`` a fresh sweep (``start == 0``)
+    walks the score-tier segments of :func:`_order_segments` best-first,
+    one stream per segment window; an overflow resume (``start > 0``)
+    stays lexicographic, as in the JAX package."""
     g = st.num_gates
     args, total, chunk = ctx.stream_args(st, target, mask, inbits, 5)
     splits, w_tab, m_tab = sweeps.lut5_split_tables()
     jw, jm = ctx.lut5_tabs()
-    while start < total:
-        v = sweeps.lut5_stream(
-            *args, start, total, jw, jm, ctx.next_seed(), chunk=chunk
-        )
-        status, cstart = int(v[0]), int(v[6])
-        ctx.stats.inc("lut5_candidates", int(v[7]))
-        if status == 0:
-            break
-        if status == 1:
-            return _decode_lut5(
-                ctx, comb.unrank_combination(int(v[1]), g, 5), int(v[2]),
-                int(v[3]), _unpack32(int(v[4]) & 0xFFFFFFFF),
-                _unpack32(int(v[5]) & 0xFFFFFFFF), splits, w_tab, m_tab,
+    segments = None
+    if start == 0:
+        segments = _order_segments(ctx, 5, (args, total, chunk))
+    ordered = segments is not None
+    if not ordered:
+        segments = [(start, total, 0)]
+    for seg_lo, seg_hi, tier in segments:
+        start = seg_lo
+        while start < seg_hi:
+            v = sweeps.lut5_stream(
+                *args, start, seg_hi, jw, jm, ctx.next_seed(), chunk=chunk
             )
-        # status 2: the chunk at cstart had more feasible tuples than the
-        # in-stream solver examined — re-drive just that chunk in full, then
-        # resume after it.
-        res = _lut5_chunk_two_phase(
-            ctx, st, target, mask, inbits, cstart, prebuilt=(args, total, chunk)
-        )
-        if res is not None:
-            return res
-        start = cstart + chunk
+            if ordered:
+                ctx.stats.inc("order_tier_dispatches")
+            status, cstart = int(v[0]), int(v[6])
+            ctx.stats.inc("lut5_candidates", int(v[7]))
+            if status == 0:
+                break  # segment exhausted; on to the next tier segment
+            if status == 1:
+                if ordered:
+                    ctx.stats.inc("order_first_hit_tier", tier)
+                return _decode_lut5(
+                    ctx, comb.unrank_combination(int(v[1]), g, 5), int(v[2]),
+                    int(v[3]), _unpack32(int(v[4]) & 0xFFFFFFFF),
+                    _unpack32(int(v[5]) & 0xFFFFFFFF), splits, w_tab, m_tab,
+                )
+            # status 2: the chunk at cstart had more feasible tuples than
+            # the in-stream solver examined — re-drive just that chunk in
+            # full, then resume after it (within the segment).
+            res = _lut5_chunk_two_phase(
+                ctx, st, target, mask, inbits, cstart, prebuilt=(args, total, chunk)
+            )
+            if res is not None:
+                if ordered:
+                    ctx.stats.inc("order_first_hit_tier", tier)
+                return res
+            start = cstart + chunk
     return None
 
 
@@ -428,6 +464,64 @@ def _lut5_search_host(ctx: SearchContext, st: State, target, mask, inbits) -> Op
 
 
 # -------------------------------------------------------------------------
+# Spectral best-first candidate ordering (candidate_order="spectral")
+#
+# ops/spectral.py scores every gate table against the masked target; the
+# drivers bucket rank chunks (or pivot tiles) into score tiers and sweep the
+# same streams through the tiers best-first via their (start, stop)
+# operands.  Ordering only: the segments partition the space
+# (comb.tier_segments asserts it), and the scores are a pure integer
+# function of (tables, target, mask), so the order — hence the dispatch
+# count and the seed draws — is deterministic per configuration.
+# -------------------------------------------------------------------------
+
+#: Score tiers of the best-first rank remap.
+ORDER_TIERS = 4
+
+
+def _use_spectral(ctx: SearchContext, total: int, chunk: int) -> bool:
+    """Route guard for the ordered rank streams: opted in, more than one
+    chunk to order, and within the scoring budget."""
+    return (
+        ctx.opt.candidate_order == "spectral"
+        and chunk < total <= spectral.SPECTRAL_SCORE_MAX
+    )
+
+
+def _order_segments(ctx, k, prebuilt):
+    """Best-first rank segments ``[(lo_rank, hi_rank, tier), ...]`` of a
+    chunked stream, partitioning [0, total) in chunk-aligned ranges, or
+    None when the stream keeps lexicographic order.  One
+    ``spectral_score_stream`` pass scores every rank chunk."""
+    args, total, chunk = prebuilt
+    if not _use_spectral(ctx, total, chunk):
+        return None
+    n_chunks = -(-total // chunk)
+    n_pad = 8
+    while n_pad < n_chunks:
+        n_pad *= 2
+    scores = sweeps.spectral_score_stream(
+        *args, total, k=k, chunk=chunk, n_chunks=n_pad
+    ).cpu().numpy()
+    return [
+        (lo * chunk, min(hi * chunk, total), tier)
+        for lo, hi, tier in comb.tier_segments(scores, n_chunks, ORDER_TIERS)
+    ]
+
+
+def _order_tile_segments(ctx, dev_tables, target, mask, descs, t_real):
+    """Pivot-path best-first ordering: every tile keys on its pivot gate
+    ``descs[:, 0]``, so one gate-score pass (kernel K5 on the card) tiers
+    the tiles.  Returns ``[(lo_tile, hi_tile, tier), ...]`` partitioning
+    [0, t_real)."""
+    gscores = sweeps.spectral_gate_scores(
+        dev_tables, ctx.words(target), ctx.words(mask)
+    ).cpu().numpy()
+    tile_scores = gscores[descs[:t_real, 0]]
+    return comb.tier_segments(tile_scores, t_real, ORDER_TIERS)
+
+
+# -------------------------------------------------------------------------
 # 7-LUT
 # -------------------------------------------------------------------------
 
@@ -442,24 +536,37 @@ def _lut7_collect_hits(ctx: SearchContext, st: State, target, mask, inbits):
     hit_req0: List[np.ndarray] = []
     nhits = 0
     if sweeps.device_rank_limit(g, 7):
+        # Under candidate_order="spectral" the windows walk the score-tier
+        # segments best-first; run to exhaustion they collect the lex hit
+        # set, and a binding LUT7_CAP keeps the best-scored hits.
         total = comb.n_choose_k(g, 7)
         prebuilt = ctx.stream_args(st, target, mask, inbits, 7)
-        start = 0
-        while start < total and nhits < LUT7_CAP:
-            found, cstart, feas, r1, r0, examined, chunk = ctx.feasible_stream_driver(
-                st, target, mask, inbits, k=7, start=start, prebuilt=prebuilt
-            )
-            ctx.stats.inc("lut7_candidates", examined)
-            if not found:
-                break
-            rows = np.nonzero(feas.cpu().numpy())[0]
-            hit_combos.append(np.stack(
-                [comb.unrank_combination(cstart + int(r), g, 7) for r in rows]
-            ))
-            hit_req1.append(sweeps.to_u32(r1)[rows])
-            hit_req0.append(sweeps.to_u32(r0)[rows])
-            nhits += len(rows)
-            start = cstart + chunk
+        segments = _order_segments(ctx, 7, prebuilt)
+        ordered = segments is not None
+        if not ordered:
+            segments = [(0, total, 0)]
+        for seg_lo, seg_hi, tier in segments:
+            start = seg_lo
+            while start < seg_hi and nhits < LUT7_CAP:
+                found, cstart, feas, r1, r0, examined, chunk = ctx.feasible_stream_driver(
+                    st, target, mask, inbits, k=7, start=start, prebuilt=prebuilt,
+                    stop=seg_hi,
+                )
+                ctx.stats.inc("lut7_candidates", examined)
+                if ordered:
+                    ctx.stats.inc("order_tier_dispatches")
+                if not found:
+                    break  # segment exhausted; on to the next tier segment
+                if ordered and nhits == 0:
+                    ctx.stats.inc("order_first_hit_tier", tier)
+                rows = np.nonzero(feas.cpu().numpy())[0]
+                hit_combos.append(np.stack(
+                    [comb.unrank_combination(cstart + int(r), g, 7) for r in rows]
+                ))
+                hit_req1.append(sweeps.to_u32(r1)[rows])
+                hit_req0.append(sweeps.to_u32(r0)[rows])
+                nhits += len(rows)
+                start = cstart + chunk
     else:
         for combos_fn, feas, req1p, req0p in _wide_feasible_chunks(
             ctx, st, target, mask, inbits, 7, LUT7_CHUNK, "lut7_candidates"

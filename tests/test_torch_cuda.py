@@ -103,3 +103,81 @@ def test_cuda_streams_match_cpu():
             comb.n_choose_k(g, 5), w(w_tab), w(m_tab), 77, chunk=1 << 17,
         ))
     np.testing.assert_array_equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 512, 1000])
+@pytest.mark.parametrize("spectrum", ["target", "random"])
+def test_cuda_walsh_score_matches_plain(b, spectrum):
+    """K5 against its plain version; a random int32 spectrum exercises the
+    wrapping products and the floor division of negative sums."""
+    from sboxgates_tpu_torch.ops import spectral
+
+    dev = _cuda()
+    rng = np.random.default_rng(b)
+    tables = _t(_words(rng, b, 8)).to(dev)
+    if spectrum == "target":
+        spec = spectral.target_spectrum(_t(_words(rng, 8)).to(dev), _t(_words(rng, 8)).to(dev))
+    else:
+        spec = torch.from_numpy(
+            rng.integers(-2**31, 2**31, size=256).astype(np.int32)).to(dev)
+    before = spectral.launches
+    got = spectral.gate_scores_kernel(tables, spec)
+    assert spectral.launches == before + 1
+    assert torch.equal(got, spectral.gate_scores_plain(tables, spec))
+
+
+def _mixed_state(g=200, seed=5):
+    """8-input state grown to ``g`` gates with seeded NOT gates, 2-input
+    gates of every function and 3-LUTs; its last 8 gates are the outputs."""
+    from sboxgates_tpu_torch.core import boolfunc as bf
+    from sboxgates_tpu_torch.graph.state import GATES, NO_GATE, State
+
+    rng = np.random.default_rng(seed)
+    st = State.init_inputs(8)
+    while st.num_gates < g:
+        a, b, c = (int(x) for x in rng.choice(st.num_gates, size=3, replace=False))
+        kind = int(rng.integers(3))
+        if kind == 0:
+            st.add_gate(bf.NOT, a, NO_GATE, GATES)
+        elif kind == 1:
+            st.add_gate(int(rng.integers(16)), a, b, GATES)
+        else:
+            st.add_lut(int(rng.integers(256)), a, b, c)
+    st.outputs = list(range(g - 8, g))
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2, 300, 4096 + 13])
+def test_cuda_circuit_eval_matches_plain(w):
+    """K4 against the plain evaluator on a G = 200 state of NOT, 2-input
+    gates of every function and 3-LUTs, 8 outputs, at ragged widths."""
+    from sboxgates_tpu_torch.codegen import compile_circuit, compile_cuda, cuda_kernel
+
+    dev = _cuda()
+    st = _mixed_state(seed=w)
+    rng = np.random.default_rng(w)
+    x = _t(_words(rng, 8, w)).to(dev)
+    before = cuda_kernel.launches
+    got = compile_cuda(st, dev)(x)
+    assert cuda_kernel.launches == before + 1
+    assert torch.equal(got, compile_circuit(st)(x))
+
+
+@pytest.mark.cuda
+def test_cuda_eval_sbox_reproduces_an_example():
+    import os
+
+    from sboxgates_tpu_torch.codegen import cuda_kernel, eval_sbox
+    from sboxgates_tpu_torch.graph.xmlio import load_state
+    from sboxgates_tpu_torch.utils.sbox import load_sbox
+
+    _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    st = load_state(os.path.join(root, "examples", "des_s1_bit0_lut_best.xml"))
+    sbox, n = load_sbox(os.path.join(root, "sboxes", "des_s1.txt"))
+    before = cuda_kernel.launches
+    got = eval_sbox(st, "cuda")
+    assert cuda_kernel.launches == before + 1
+    np.testing.assert_array_equal(got & 1, sbox[: 1 << n] & 1)

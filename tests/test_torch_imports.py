@@ -38,6 +38,11 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.ops.sweeps",
         "sboxgates_tpu_torch.ops.lut5_filter",
         "sboxgates_tpu_torch.ops.pivot_tile",
+        "sboxgates_tpu_torch.ops.spectral",
+        "sboxgates_tpu_torch.codegen.executor",
+        "sboxgates_tpu_torch.codegen.cuda_kernel",
+        "sboxgates_tpu_torch.codegen.c_emit",
+        "sboxgates_tpu_torch.codegen.dot",
         "sboxgates_tpu_torch.search.kwan",
         "sboxgates_tpu_torch.graph.xmlio",
     ):

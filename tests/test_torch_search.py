@@ -268,7 +268,6 @@ def test_bad_flags_fail_with_the_jax_message(argv, capsys, tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["-o", "0", DES],
-    ["-c", "state.xml"],
     ["-l", DES, FA],
 ])
 def test_unported_modes_fail_with_one_line(argv, capsys):
