@@ -13,7 +13,10 @@ prints no result.  Phases, each of which raises on failure:
    at N = 2^17 candidates over 64- and 512-row tables, with a full mask,
    the 6-input mask of DES S1 and random mask words, the pivot tile
    kernels (K1 packed, K2 int8 lanes) at (tl, th) = (256, 512) and
-   (512, 512) on real pair-cell operands of a G = 200 state, the
+   (512, 512) on real pair-cell operands of a G = 200 state, K1's window
+   kernel (the pivot sweep's) on windows of 1 and 64 tiles and on one
+   crossing the end of the descriptors, at 256 x 512 on phase 4a's G = 99
+   state and planted target and at 512 x 512 on the G = 200 state, the
    Walsh-score kernel (K5) at B = 64 and 512 gates against a target's
    spectrum and a random int32 spectrum, and the circuit kernel (K4) on
    every examples/*.xml and on a G = 200, 8-output state of NOT, 2-input
@@ -23,7 +26,10 @@ prints no result.  Phases, each of which raises on failure:
 3. main path — ``python -m sboxgates_tpu_torch -l -o 0 --seed 1
    sboxes/des_s1.txt`` in process: every output gate is checked against the
    S-box, and the XML bytes against the file the JAX package wrote for the
-   same command (tests/data/torch_golden/des_s1_l_o0_seed1.xml);
+   same command (tests/data/torch_golden/des_s1_l_o0_seed1.xml); after
+   phase 6, a torch.profiler window around a second run of the same
+   command (3b): the device's busy share, the host's synchronising CUDA
+   calls and the top eight device operations;
 4. pivot sweep at the flagship's size — 8-input states from
    sboxes/rijndael.txt grown with seeded random gates to G = 99 (the
    deepest AES branch of examples/AES_RUN.md) and G = 200:
@@ -35,9 +41,12 @@ prints no result.  Phases, each of which raises on failure:
       for the same command
       (tests/data/torch_golden/rijndael_planted_l_o0_seed1_g99.xml);
    b. the full 5-LUT space against a random target on the packed (K1)
-      backend at G = 99 and G = 200, candidates/s printed;
+      backend at G = 99 and G = 200: candidates/s, windows, tiles swept
+      and tiles solved printed, then the sweep alone again under
+      torch.profiler for its busy share (device time over that run's wall);
    c. a torch.profiler window over 400 tiles of the G = 200 sweep: the
-      device's busy share and its time by kernel;
+      device's busy share of the profiled wall, device operations per tile
+      and its time by kernel;
 5. spectral candidate order — the CLI runs of SPECTRAL_RUNS with
    ``--candidate-order spectral``: DES S1 (no stream reordered), a G = 22
    resume against a planted 7-LUT (K5 scores the 7-LUT stage A's rank
@@ -51,10 +60,11 @@ prints no result.  Phases, each of which raises on failure:
 
 The CLI runs (phases 3, 4a, 5) and phase 6 are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
-kernel must have launched on its own path (K3 on DES S1, K1 and K2 on the
-G = 99 resume with their backend, K5 on the spectral G = 99 resume, K4 on
-codegen), K5 never on a lexicographic path nor on DES S1 spectral, and
-K1–K3 as often on the lexicographic paths as LEX_LAUNCHES records.  Phases 4b and 4c call the
+kernel must have launched on its own path (K3 on DES S1, K1's window
+kernel and K2 on the G = 99 resume with their backend, K5 on the spectral
+G = 99 resume, K4 on codegen), K5 never on a lexicographic path nor on DES
+S1 spectral, the single-tile K1 on no path, and K1–K3 (launches and tiles)
+as often on the lexicographic paths as LEX_LAUNCHES records.  Phases 4b and 4c call the
 sweep directly and report their launches in their own lines only.  The last
 lines are one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -78,13 +88,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden")
 EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "*.xml")))
 
-# K1-K3 launches of the lexicographic CLI runs, each counted from 0
-# (chip_smoke, PR 1); the spectral-order changes must leave them as they were.
+# K1-K3 launches of the lexicographic CLI runs, each counted from 0.  The
+# G = 99 resume consumes 114 pivot tiles (its hit is in tile 113): K2 sweeps
+# them one launch each; K1 sweeps them in the windows of
+# sweeps.pivot_window_schedule, 1, 2, 4, ..., 64 tiles, one window ahead of
+# the host: 8 launches over tiles [0, 191), the hit's window [63, 127) and
+# the one launched behind it, [127, 191), swept past the hit and dropped.
+# Both backends count the same 5-LUT candidates, those of tiles [0, 114).
 LEX_LAUNCHES = {
-    "des_s1": {"lut5_filter": 132, "pivot_packed": 0, "pivot_pre": 0},
-    "g99_packed": {"lut5_filter": 0, "pivot_packed": 114, "pivot_pre": 0},
-    "g99_pre": {"lut5_filter": 0, "pivot_packed": 0, "pivot_pre": 114},
+    "des_s1": {"lut5_filter": 132, "pivot_window": 0, "pivot_pre": 0},
+    "g99_packed": {"lut5_filter": 0, "pivot_window": 8, "pivot_window_tiles": 191,
+                   "pivot_pre": 0},
+    "g99_pre": {"lut5_filter": 0, "pivot_window": 0, "pivot_pre": 114,
+                "pivot_pre_tiles": 114},
 }
+G99_TILES = 114
+G99_CANDIDATES = 2061108
 
 # H100 SXM peaks.  HBM bandwidth from NVIDIA's data sheet.  The kernels run
 # 32-bit logic (LOP3) on the integer pipe, which retires 64 results per SM
@@ -125,21 +144,37 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def profiled(fn, warm_up):
+    """(key_averages, wall microseconds, result) of one call of ``fn``
+    under torch.profiler, wall on the host's clock up to a device sync.
+    ``warm_up`` runs first, in the profiler's warm-up step: a trace that
+    starts with the measured work loses its first device operations (on
+    the H100, the first 5-7 windows of a pivot sweep)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+        warm_up()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    return got[0], wall_us, out
+
+
 def kernel_device_ms(fn, kernel: str, reps: int = 20):
     """Device milliseconds per launch of the kernel whose name contains
     ``kernel``, from a torch.profiler trace of ``reps`` calls of ``fn``;
     None when the trace holds no device time for it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    events, _, _ = profiled(lambda: [fn() for _ in range(reps)], fn)
     total, count = 0.0, 0
-    for evt in prof.key_averages():
+    for evt in events:
         if kernel in evt.key:
             total += _device_us(evt)
             count += evt.count
@@ -320,7 +355,10 @@ def phase_parity(dev) -> dict:
                 bytes=2 * 2 * 4 * tl * 256 + 4 * th * 256 + 2 * cand * 4,
                 tc_ops=2 * 2 * (8 * tl) * (4 * th) * 256,
             )
-    out["pivot_packed"] = res["packed"]
+    log(f"  K1 pivot_constraints (single tile, on no search path): "
+        f"{res['packed']['ms']:.4f} ms per call (device {res['packed']['device_ms']}), "
+        f"bound {bound(res['packed'])[0]:.5f} ms")
+    out["pivot_window"] = parity_window(dev, tables, target, mask)
     out["pivot_pre"] = res["pre"]
     out["walsh_score"] = parity_walsh(dev, rng)
     out["circuit_eval"] = parity_circuit(dev)
@@ -330,6 +368,87 @@ def phase_parity(dev) -> dict:
             f"{'not in the trace' if dms is None else f'{dms:.4f} ms'}), "
             f"plain {r['plain_ms']:.3f} ms at {r['shape']}")
     return out
+
+
+def window_cost(n: int, tl: int, th: int) -> dict:
+    """Bytes and 32-bit operations of a window of ``n`` pivot tiles: per
+    tile its descriptor, pivot table, low rows (2 x 4 cells x 32 B), high
+    rows (4 cells x 32 B) and validity bytes in, 9 B per candidate and a
+    count out; per candidate K1's 576 AND-OR and pack steps and 4 of the
+    fused epilogue (the validity and, the conflict and, its test, the
+    count), the ballot and popc per 32 candidates beside them."""
+    cand = tl * th
+    per_tile_in = 20 + 32 + tl * 2 * 4 * 32 + th * 4 * 32 + tl + th
+    return {"bytes": n * (per_tile_in + 9 * cand + 4),
+            "ops": n * cand * (576 + 4)}
+
+
+def parity_window(dev, tables, target, mask) -> dict:
+    """The window kernel (K1 as the pivot sweep runs it) against its plain
+    version at both of the sweep's tile shapes: 256 x 512 on the G = 99
+    state and planted target of phase 4a (the shape of the g99_packed
+    resume and of phase 4b's G = 99 sweep; windows from tile 100, which
+    hold tile 113's feasible candidate) and 512 x 512 on the G = 200 state
+    of the K1 parity (``tables``, ``target``, ``mask``; windows from its
+    middle tile).  At each: one tile, a full window of 64 tiles and a
+    window crossing the end of the descriptors (its last 54 tiles past
+    t_end); timed per launch at 64 tiles (the sweep's full window) and 1
+    (its first window).  The row is the 64-tile window at 512 x 512."""
+    import numpy as np
+    import torch
+
+    from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.ops import pivot_tile, sweeps
+    from sboxgates_tpu_torch.search.lut import PivotOperands
+
+    st99 = random_state(99, 11)
+    states = {
+        (256, 512): (99, sweeps.as_words(
+            np.pad(st99.live_tables(), ((0, 512 - 99), (0, 0))), dev),
+            tt.target_table(planted_sbox(st99), 0), tt.mask_table(8), 100),
+        (512, 512): (200, tables, target, mask, None),
+    }
+    r = {"mismatches": 0, "max_abs_err": 0}
+    timed = {}
+    for (tl, th), (g, tabs, tgt, msk, t_first) in states.items():
+        ops = PivotOperands(g, tl, th, [], tabs, tgt, msk, dev)
+        descs = torch.from_numpy(ops.descs).to(dev)
+        t_real = ops.t_real
+        mid = t_real // 2 if t_first is None else t_first
+        args = (ops.tables, ops.lc1, ops.lc0, ops.hc, ops.jlv, ops.jhv, descs)
+        feasible = 0
+        for t0, n in ((mid, 1), (mid, 64), (t_real - 10, 64)):
+            got = pivot_tile.pivot_window(*args, t0, n, t_real, tl, th)
+            want = pivot_tile.pivot_window_plain(*args, t0, n, t_real, tl, th)
+            c = compare(f"K1 pivot_window G={g} {tl}x{th} tiles [{t0}, {t0 + n}) "
+                        f"of {t_real} ({int(want[3].sum())} feasible)", got, want)
+            feasible += int(want[3].sum())
+            r["mismatches"] += c["mismatches"]
+            r["max_abs_err"] = max(r["max_abs_err"], c["max_abs_err"])
+        if t_first is not None and not feasible:
+            raise AssertionError(f"K1 pivot_window G={g}: the compared windows "
+                                 "hold no feasible candidate")
+        for n in (64, 1):
+            run = lambda n=n: pivot_tile.pivot_window(*args, mid, n, t_real, tl, th)  # noqa: E731
+            t = dict(
+                ms=time_ms(run, 20 if n > 1 else 50),
+                device_ms=kernel_device_ms(run, "pivot_window_kernel"),
+                plain_ms=time_ms(
+                    lambda n=n: pivot_tile.pivot_window_plain(
+                        *args, mid, n, t_real, tl, th),
+                    1, warmup=1),
+                shape=f"{n} tiles of {tl}x{th} (G={g})", tiles=n,
+                **window_cost(n, tl, th),
+            )
+            timed[(tl, th, n)] = t
+            dms = t["device_ms"]
+            log(f"  K1 pivot_window G={g}, {n} tiles of {tl}x{th}: {t['ms']:.4f} ms "
+                f"per launch, {t['ms'] / n:.5f} ms per tile (device "
+                f"{'not in the trace' if dms is None else f'{dms / n:.5f} ms'} per "
+                f"tile), bound {bound(t)[0] / n:.5f} ms per tile by {bound(t)[1]}")
+    r.update(timed.pop((512, 512, 64)))
+    r["also"] = [timed[(512, 512, 1)], timed[(256, 512, 64)], timed[(256, 512, 1)]]
+    return r
 
 
 def walsh_cost(b: int) -> dict:
@@ -387,13 +506,14 @@ def parity_walsh(dev, rng) -> dict:
 
 def circuit_cost(st, w: int) -> dict:
     """Bytes and operations of K4 over ``w`` words: each input and output
-    word once plus the 8 B-per-gate program, and one 32-bit logic operation
-    (a LOP3) per gate and word."""
-    from sboxgates_tpu_torch.codegen import output_bits
+    word once plus the 16 B-per-instruction program, and one 32-bit logic
+    operation (a LOP3) per gate an output needs and word."""
+    from sboxgates_tpu_torch.codegen import cuda_kernel, output_bits
 
     n_out = len(output_bits(st))
-    return {"bytes": 4 * (st.num_inputs + n_out) * w + 8 * st.num_gates,
-            "ops": (st.num_gates - st.num_inputs) * w}
+    prog, _, _ = cuda_kernel.pack_program(st)
+    return {"bytes": 4 * (st.num_inputs + n_out) * w + 16 * len(prog),
+            "ops": len(prog) * w}
 
 
 def parity_circuit(dev) -> dict:
@@ -403,7 +523,7 @@ def parity_circuit(dev) -> dict:
     examples/des_s1_bit0_lut_best.xml and on the mixed state."""
     import torch
 
-    from sboxgates_tpu_torch.codegen import compile_circuit, compile_cuda
+    from sboxgates_tpu_torch.codegen import compile_circuit, compile_cuda, cuda_kernel
     from sboxgates_tpu_torch.graph.xmlio import load_state
 
     gen = torch.Generator(device=dev)
@@ -429,6 +549,11 @@ def parity_circuit(dev) -> dict:
         x = torch.randint(-2**31, 2**31, (st.num_inputs, w), dtype=torch.int32,
                           device=dev, generator=gen)
         fn, plain = compile_cuda(st, dev), compile_circuit(st)
+        prog, _, n_slots = cuda_kernel.pack_program(st)
+        threads, smem = cuda_kernel.block_shape(len(prog), n_slots)
+        log(f"  K4 {name}: {st.num_gates - st.num_inputs} gates, {len(prog)} "
+            f"instructions over {n_slots} slots, {threads} threads x 4 words "
+            f"per block, {smem} B of shared memory")
         timed[name] = dict(
             ms=time_ms(lambda: fn(x), 30),
             device_ms=kernel_device_ms(lambda: fn(x), "circuit_eval_kernel"),
@@ -498,11 +623,11 @@ G22_ARGV = ["-l", "-o", "0", "--seed", "1", "-g",
 G22_BOX = os.path.join(GOLDEN, "rijndael_planted7_bit0.txt")
 
 
-def phase_main_path(dev, outdir: str) -> str:
+def phase_main_path(dev, outdir: str):
     """``-l -o 0 --seed 1 sboxes/des_s1.txt``: the golden file
     tests/data/torch_golden/des_s1_l_o0_seed1.xml."""
     return run_cli(dev, "phase 3 main path des_s1", DES_ARGV, DES_BOX,
-                   os.path.join(GOLDEN, "des_s1_l_o0_seed1.xml"), outdir)[0]
+                   os.path.join(GOLDEN, "des_s1_l_o0_seed1.xml"), outdir)
 
 
 def planted_sbox(st, gates=(90, 91, 92, 93, 94)):
@@ -553,7 +678,7 @@ def planted7_sbox(st):
     return (sbox & 0xFE) | tt.to_bits(target).astype(np.uint8)
 
 
-def phase_resume_pivot(dev, backend: str, outdir: str) -> str:
+def phase_resume_pivot(dev, backend: str, outdir: str):
     """``-l -o 0 --seed 1 --pivot-backend <backend> -g <state> <sbox>``: the
     CLI resumes from a saved G = 99 state (random_state(99, 11)) against an
     S-box whose output bit 0 is a planted 5-LUT of its gates
@@ -565,10 +690,10 @@ def phase_resume_pivot(dev, backend: str, outdir: str) -> str:
         dev, f"phase 4a resume G=99 g99_{backend}",
         G99_ARGV + ["--pivot-backend", backend], G99_BOX,
         os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml"), outdir,
-    )[0]
+    )
 
 
-def phase_spectral(dev, name: str, outdir: str) -> str:
+def phase_spectral(dev, name: str, outdir: str):
     """A CLI run with ``--candidate-order spectral`` (phase 5): the XML is
     the JAX CLI's for the same command, and the score tiers reordered at
     least one stream (``order_tier_dispatches`` > 0) where SPECTRAL_RUNS
@@ -584,7 +709,7 @@ def phase_spectral(dev, name: str, outdir: str) -> str:
         raise AssertionError(f"{name}: ordered dispatches "
                              f"{stats.get('order_tier_dispatches', 0)}, expected "
                              f"{'some' if ordered else 'none'}")
-    return path
+    return path, stats
 
 
 def phase_codegen(dev, written) -> None:
@@ -636,7 +761,11 @@ def phase_pivot(dev) -> dict:
     from sboxgates_tpu_torch.core import ttable as tt
     from sboxgates_tpu_torch.ops import pivot_tile, sweeps
     from sboxgates_tpu_torch.search import Options, SearchContext
-    from sboxgates_tpu_torch.search.lut import _lut5_search_pivot, pivot_tile_shape
+    from sboxgates_tpu_torch.search.lut import (
+        PivotOperands,
+        _lut5_search_pivot,
+        pivot_tile_shape,
+    )
 
     rates = {}
     mask = tt.mask_table(8)
@@ -646,38 +775,70 @@ def phase_pivot(dev) -> dict:
         target = rng.integers(0, 2**32, size=8, dtype=np.uint64).astype(np.uint32)
         ctx = SearchContext(Options(seed=1, lut_graph=True, device=dev.type))
         tiles = sweeps.pivot_tile_descs(g, *pivot_tile_shape(g), []).shape[0]
-        before = pivot_tile.launches["packed"]
+        pivot_tile.launches.update(packed=0, pre=0, tile=0)
+        pivot_tile.tiles.update(packed=0, pre=0, solved=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = _lut5_search_pivot(ctx, st, target, mask, [])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = pivot_tile.launches["packed"] - before
+        windows = pivot_tile.launches["packed"]
+        swept = pivot_tile.tiles["packed"]
+        solved = pivot_tile.tiles["solved"]
         cand = ctx.stats["lut5_candidates"]
         if res is not None:
             raise AssertionError(f"G={g}: a random target decomposed")
         if cand != math.comb(g, 5):
             raise AssertionError(f"G={g}: swept {cand} of C({g},5) candidates")
+        if swept < tiles:
+            raise AssertionError(f"G={g}: K1 swept {swept} of {tiles} tiles")
+        # The sweep alone: the same stream over operands built beforehand
+        # (the node's wall above includes building them).
+        tl, th = pivot_tile_shape(g)
+        ops = PivotOperands(g, tl, th, [], ctx.device_tables(st), target, mask, dev)
+        jw, jm = ctx.lut5_tabs()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        v = sweeps.lut5_pivot_stream(*ops.stream_args(), 0, ops.t_real, jw, jm, 1,
+                                     tl=tl, th=th)
+        torch.cuda.synchronize()
+        sweep = time.perf_counter() - t1
+        if int(v[0]) != 0 or int(v[8]) != tiles:
+            raise AssertionError(f"G={g}: the sweep alone returned {v.tolist()}")
+        # Its busy share from one run: the same sweep again under the
+        # profiler, its device time in that trace over that run's wall.
+        def sweep_to(t_end):
+            return sweeps.lut5_pivot_stream(*ops.stream_args(), 0, t_end, jw, jm, 1,
+                                            tl=tl, th=th)
+
+        events, prof_us, _ = profiled(lambda: counted(sweep_to, ops.t_real),
+                                      lambda: sweep_to(min(200, ops.t_real)))
+        busy_us, _ = device_summary(
+            events, f"phase 4b profile G={g}, the whole sweep alone", prof_us, top=3)
+        traced_windows(events)
         rates[g] = {"candidates": cand, "seconds": wall, "cand_per_s": cand / wall,
-                    "tiles": tiles, "launches": n}
+                    "sweep_seconds": sweep, "sweep_cand_per_s": cand / sweep,
+                    "sweep_busy": busy_us / prof_us,
+                    "tiles": tiles, "windows": windows, "tiles_swept": swept,
+                    "tiles_solved": solved}
         log(f"phase 4b pivot sweep G={g} (packed): {cand} candidates in "
             f"{wall:.3f} s = {cand / wall:.4e} cand/s, no hit (as expected); "
-            f"{tiles} tiles, {n} tile launches ({n - tiles} overflow re-drives), "
-            f"{wall / n * 1e3:.4f} ms per launch")
-
+            f"{tiles} tiles in {windows} windows ({swept} tiles swept, "
+            f"{swept - tiles} of them overflow re-drives), {solved} tiles solved "
+            f"({100 * solved / tiles:.2f}%), {wall / tiles * 1e3:.5f} ms per tile, "
+            f"{wall / windows * 1e3:.4f} ms per window; the sweep alone "
+            f"{sweep:.4f} s = {cand / sweep:.4e} cand/s, "
+            f"{sweep / tiles * 1e3:.5f} ms per tile")
     return rates
 
 
 def phase_profile_sweep(dev, tiles: int = 400) -> None:
     """torch.profiler window over ``tiles`` tiles of phase 4b's
-    G = 200 sweep: the device's busy share of the wall time and the device
-    time by kernel."""
+    G = 200 sweep: the device's busy share of the profiled run's wall,
+    device operations per tile and the device time by kernel."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from sboxgates_tpu_torch.ops import sweeps
+    from sboxgates_tpu_torch.ops import pivot_tile, sweeps
     from sboxgates_tpu_torch.search import Options, SearchContext
     from sboxgates_tpu_torch.search.lut import PivotOperands, pivot_tile_shape
 
@@ -695,26 +856,103 @@ def phase_profile_sweep(dev, tiles: int = 400) -> None:
         return sweeps.lut5_pivot_stream(
             *ops.stream_args(), t0, t1, jw, jm, 12345, tl=tl, th=th)
 
-    window(0, 20)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        v = window(20, 20 + tiles)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    # The warm-up sweeps up to a full window, so the window buffers come
+    # from the caching allocator as they do from the second pivot node of a
+    # search.
+    window(0, 200)
+    events, wall_us, v = profiled(lambda: counted(window, 200, 200 + tiles),
+                                  lambda: window(0, 200))
     if int(v[0]) != 0:
         raise AssertionError("profiled window found a hit on a random target")
+    busy, nops = device_summary(events, f"phase 4c profile G={g}, {tiles} tiles",
+                                wall_us)
+    traced_windows(events)
+    log(f"  {pivot_tile.launches['packed']} windows, {pivot_tile.tiles['packed']} "
+        f"tiles swept, {pivot_tile.tiles['solved']} solved; "
+        f"{nops / tiles:.3f} device operations per tile, "
+        f"{wall_us / 1e3 / tiles:.5f} ms of profiled wall per tile")
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with the pivot launch and tile counts set to 0 just
+    before it."""
+    from sboxgates_tpu_torch.ops import pivot_tile
+
+    pivot_tile.launches.update(packed=0, pre=0, tile=0)
+    pivot_tile.tiles.update(packed=0, pre=0, solved=0)
+    return fn(*args)
+
+
+def traced_windows(events) -> None:
+    """Raises unless the trace holds one window kernel per window launched
+    since the counts were last set to 0: a busy share from a trace that
+    lost device operations would read low."""
+    from sboxgates_tpu_torch.ops import pivot_tile
+
+    windows = pivot_tile.launches["packed"]
+    got = sum(e.count for e in events if "pivot_window_kernel" in e.key
+              and _device_us(e) > 0)
+    log(f"  the trace holds {got} window kernels of {windows} windows run")
+    if got != windows:
+        raise AssertionError(f"the trace holds {got} window kernels, not {windows}")
+
+
+def device_summary(events, label: str, wall_us: float, top: int = 8):
+    """Logs a profiler window's device busy share and its ``top`` device
+    operations by time; returns (busy microseconds, device operations).
+    The profiler's step span (``ProfilerStep#``) is on the device's
+    timeline too, but it is the measured step itself, not an operation."""
+    from torch.autograd import DeviceType
+
     rows = sorted(
-        ((e.key, _device_us(e), e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and _device_us(e) > 0),
+        ((e.key, _device_us(e), e.count) for e in events
+         if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+         and not e.key.startswith("ProfilerStep")),
         key=lambda r: -r[1],
     )
     busy = sum(r[1] for r in rows)
-    log(f"phase 4c profile G={g}, {tiles} tiles: wall {wall_us / 1e3:.2f} ms, "
-        f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
-        f"{sum(r[2] for r in rows)} device operations")
-    for key, us, count in rows[:8]:
+    nops = sum(r[2] for r in rows)
+    log(f"{label}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / wall_us:.1f}%), {nops} device operations")
+    for key, us, count in rows[:top]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+    return busy, nops
+
+
+def phase_profile_des(dev, outdir: str) -> None:
+    """torch.profiler window around a second DES S1 CLI run (phase 3's
+    command; not a counted path): the device's busy share, the host's
+    synchronising CUDA calls (counted as the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``) and the top eight device
+    operations."""
+    import warnings
+
+    import torch
+
+    from sboxgates_tpu_torch import cli
+
+    d = os.path.join(outdir, "des_s1_profile")
+    os.makedirs(d)
+
+    def run():
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                return cli.main([*DES_ARGV, "--device", dev.type, "--output-dir", d,
+                                 DES_BOX])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        events, wall_us, rc = profiled(
+            run, lambda: torch.ones(1 << 20, device=dev).cumsum(0))
+    if rc != 0:
+        raise AssertionError(f"profiled DES S1 run exited {rc}")
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    device_summary(events, "phase 3b profile des_s1", wall_us)
+    log(f"  {syncs} synchronising CUDA calls on the host, "
+        f"{wall_us / 1e3 / max(syncs, 1):.4f} ms of wall per sync")
 
 
 def gpu_line() -> str:
@@ -748,7 +986,7 @@ SPECTRAL_RUNS = {
 KERNELS = {
     "lut5_filter": ("cuda", "sboxgates_tpu_torch/csrc/lut5_filter.cu",
                     "sboxgates_tpu/ops/pallas_filter.py:58", "des_s1"),
-    "pivot_packed": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
+    "pivot_window": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
                      "sboxgates_tpu/ops/pallas_pivot.py:133", "g99_packed"),
     "pivot_pre": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
                   "sboxgates_tpu/ops/pallas_pivot.py:218", "g99_pre"),
@@ -792,14 +1030,19 @@ def main() -> int:
         """Launch counts of one main-path run: 0 right before, read right
         after."""
         lut5_filter.launches = 0
-        pivot_tile.launches.update(packed=0, pre=0)
+        pivot_tile.launches.update(packed=0, pre=0, tile=0)
+        pivot_tile.tiles.update(packed=0, pre=0, solved=0)
         spectral.launches = 0
         cuda_kernel.launches = 0
         drive()
         counts = {
             "lut5_filter": lut5_filter.launches,
-            "pivot_packed": pivot_tile.launches["packed"],
+            "pivot_window": pivot_tile.launches["packed"],
+            "pivot_window_tiles": pivot_tile.tiles["packed"],
             "pivot_pre": pivot_tile.launches["pre"],
+            "pivot_pre_tiles": pivot_tile.tiles["pre"],
+            "pivot_tiles_solved": pivot_tile.tiles["solved"],
+            "pivot_tile": pivot_tile.launches["tile"],
             "walsh_score": spectral.launches,
             "circuit_eval": cuda_kernel.launches,
         }
@@ -808,30 +1051,42 @@ def main() -> int:
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        written = []
+        written, stats = [], {}
 
-        def cli_path(drive, box):
-            written.append((drive(), box))
+        def cli_path(name, drive, box):
+            path, stats[name] = drive()
+            written.append((path, box))
 
         paths = {
             "des_s1": on_path("des_s1", lambda: cli_path(
-                lambda: phase_main_path(dev, outdir), DES_BOX)),
+                "des_s1", lambda: phase_main_path(dev, outdir), DES_BOX)),
             "g99_packed": on_path("g99_packed", lambda: cli_path(
-                lambda: phase_resume_pivot(dev, "packed", outdir), G99_BOX)),
+                "g99_packed", lambda: phase_resume_pivot(dev, "packed", outdir),
+                G99_BOX)),
             "g99_pre": on_path("g99_pre", lambda: cli_path(
-                lambda: phase_resume_pivot(dev, "pre", outdir), G99_BOX)),
+                "g99_pre", lambda: phase_resume_pivot(dev, "pre", outdir), G99_BOX)),
         }
         for name, (_, box, _, _) in SPECTRAL_RUNS.items():
             paths[name] = on_path(name, lambda n=name, b=box: cli_path(
-                lambda: phase_spectral(dev, n, outdir), b))
+                n, lambda: phase_spectral(dev, n, outdir), b))
         paths["codegen"] = on_path("codegen", lambda: phase_codegen(dev, written))
+        phase_profile_des(dev, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     for name, (_, _, _, home) in KERNELS.items():
         if paths[home][name] <= 0:
             raise AssertionError(f"{name} never launched on path {home}")
-    if paths["g99_packed"]["pivot_pre"] or paths["g99_pre"]["pivot_packed"]:
+    if paths["g99_packed"]["pivot_pre"] or paths["g99_pre"]["pivot_window"]:
         raise AssertionError("--pivot-backend did not pick the tile kernel")
+    if any(c["pivot_tile"] for c in paths.values()):
+        raise AssertionError("a search path launched the single-tile K1")
+    for path in ("g99_packed", "g99_pre"):
+        if stats[path].get("lut5_candidates") != G99_CANDIDATES:
+            raise AssertionError(
+                f"{path} counted {stats[path].get('lut5_candidates')} 5-LUT "
+                f"candidates, not the {G99_CANDIDATES} of tiles [0, {G99_TILES})")
+        log(f"  {path}: {G99_CANDIDATES} candidates over {G99_TILES} tiles, "
+            f"{paths[path]['pivot_tiles_solved']} of them solved")
     if paths["des_s1_spectral"]["walsh_score"] or not paths["g22_spectral"]["walsh_score"]:
         raise AssertionError("walsh_score launched off an ordered stream, or not on one")
     for path, want in LEX_LAUNCHES.items():
@@ -855,7 +1110,16 @@ def main() -> int:
             log(f"  {name} at {extra['shape']}: {extra['ms']:.4f} ms per call "
                 f"(device {extra['device_ms']}), plain {extra['plain_ms']:.3f} ms, "
                 f"bound {b_ms:.5f} ms by {b_by}")
-        kernels.append({
+        per_tile = {}
+        if "tiles" in r:
+            per_tile = {"tiles": paths[home][f"{name}_tiles"],
+                     "tiles_by_path": {p: c[f"{name}_tiles"] for p, c in paths.items()},
+                     "tiles_per_launch": r["tiles"],
+                     "ms_per_tile": r["ms"] / r["tiles"],
+                     "device_ms_per_tile": None if r["device_ms"] is None
+                     else r["device_ms"] / r["tiles"],
+                     "bound_ms_per_tile": bound_ms / r["tiles"]}
+        kernels.append(per_tile | {
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": paths[home][name],
             "path": home,
@@ -869,7 +1133,10 @@ def main() -> int:
             log(f"  {name}: int8 tensor-core bound of the TPU formulation "
                 f"{r['tc_ops'] / INT8_TC_OPS_S * 1e3:.5f} ms per tile")
     for g, r in rates.items():
-        log(f"pivot G={g}: {r['cand_per_s']:.6e} cand/s")
+        log(f"pivot G={g}: {r['cand_per_s']:.6e} cand/s (node), "
+            f"{r['sweep_cand_per_s']:.6e} cand/s (sweep alone), "
+            f"{100 * r['sweep_busy']:.1f}% busy (the sweep alone, profiled), "
+            f"{r['windows']} windows, {r['tiles_solved']} of {r['tiles']} tiles solved")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({

@@ -51,11 +51,17 @@ _SIGNATURES = {
     # l1, l0, l_plane_stride, hcs, h_plane_stride, pmw, tl, th,
     # req1, req0, stream
     "sbgt_pivot_packed": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
+    # tables, l1, l0, l_plane_stride, hcs, h_plane_stride, lowvalid,
+    # highvalid, descs, t0, n, t_end, tl, th, req1, req0, feas, counts,
+    # stream
+    "sbgt_pivot_window": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _P, _P, _P, _P, _P],
     # lhs1, lhs0, rhsb, tl, th, req1, req0, stream
     "sbgt_pivot_pre": [_P, _P, _P, _I, _I, _P, _P, _P],
     # tables, n_gates, spectrum, out, stream
     "sbgt_walsh_scores": [_P, _I, _P, _P, _P],
-    # prog, n_gates, n_in, outs, n_out, inputs, w, out, threads, smem, stream
+    # prog, n_prog, n_in, out_slots, n_out, inputs, w, out, threads, smem,
+    # stream
     "sbgt_circuit_eval": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
 }
 

@@ -3,10 +3,10 @@ card.
 
 Replaces the TPU kernel ``sboxgates_tpu/codegen/pallas_kernel.py:26``
 (``compile_pallas``), which unrolled each circuit into its own Pallas
-kernel.  ``csrc/circuit_eval.cu`` is one kernel for every circuit: an
-interpreter over the gate program of :func:`.executor.gate_arrays`, packed
-8 bytes per gate, with one thread per word column and the gate values in
-shared memory (see the source's header for the design and its bound).
+kernel.  ``csrc/circuit_eval.cu`` is one kernel for every circuit: it runs
+the program :func:`pack_program` lowers from the circuit, one
+``lop3.b32`` per live gate and word, over value slots that a liveness pass
+reuses (see the source's header for the design and its bound).
 
 :func:`compile_cuda` returns ``fn(inputs)``: int32[n_in, W] ->
 int32[n_out, W] in ``output_bits`` order.  On a CUDA tensor ``fn`` launches
@@ -16,7 +16,8 @@ the kernel or raises; a CPU tensor runs the plain version,
 
 from __future__ import annotations
 
-from typing import Callable
+import heapq
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -34,33 +35,77 @@ launches = 0
 #: this limit: the kernel's launcher asks the card for what the block needs.
 MAX_SMEM = 232448
 
-#: Block sizes tried, largest first.
-THREADS = (256, 128, 64, 32)
+#: Shared memory of one SM (228 KB), of which the card keeps 1 KB per
+#: resident block.
+SM_SMEM = 233472
+
+#: Block sizes tried (the kernel's launch bounds take 128 at most); each
+#: thread evaluates 4 word columns.
+THREADS = (128, 64, 32)
 
 
-def block_shape(n_gates: int):
-    """(threads, shared bytes) of a block for a program of ``n_gates``
-    gates: the largest block whose program (8 B per gate) and gate values
-    (4 B per gate and thread) fit in shared memory.  Raises ValueError for
-    a program the kernel cannot take."""
+def block_shape(n_prog: int, n_slots: int) -> Tuple[int, int]:
+    """(threads, shared bytes) of a block for a program of ``n_prog``
+    instructions over ``n_slots`` value slots: 16 B per instruction and 16
+    B per slot and thread (4 words).  Of the block sizes that fit, the one
+    that keeps the most threads resident on an SM, the larger on a tie.
+    Raises ValueError for a program the kernel cannot take."""
+    best = None
     for t in THREADS:
-        smem = 8 * n_gates + 4 * n_gates * t
-        if smem <= MAX_SMEM:
-            return t, smem
-    raise ValueError(
-        f"circuit of {n_gates} gates exceeds the circuit kernel's shared "
-        f"memory ({MAX_SMEM} B at {THREADS[-1]} threads)"
-    )
+        smem = 16 * n_prog + 16 * n_slots * t
+        if smem > MAX_SMEM:
+            continue
+        # at most 64 registers a thread (the launch bounds): 1024 threads
+        resident = min(32, 1024 // t, SM_SMEM // (smem + 1024)) * t
+        if best is None or resident > best[0]:
+            best = (resident, t, smem)
+    if best is None:
+        raise ValueError(
+            f"circuit program of {n_prog} instructions over {n_slots} live "
+            f"values exceeds the circuit kernel's shared memory ({MAX_SMEM} B "
+            f"at {THREADS[-1]} threads)"
+        )
+    return best[1], best[2]
 
 
-def pack_program(st: State) -> np.ndarray:
-    """uint32[G, 2] program words: (in1 | in2 << 16, in3 | type << 16 |
-    func << 24), unused inputs 0.  Raises ValueError on a gate the kernel
-    does not evaluate or an input that is not an earlier gate."""
+def lop3_imm(gate_type: int, func: int) -> int:
+    """The ``lop3.b32`` immediate of a gate over (a, b, c) = (in1, in2,
+    in3), bit k the output for k = a<<2 | b<<1 | c: a 3-LUT's function
+    byte; for a 2-input gate of type f (f(1,1) = bit 0, f(1,0) = bit 1,
+    f(0,1) = bit 2, f(0,0) = bit 3) the immediate that ignores c; 0x0F for
+    NOT."""
+    if gate_type == bf.NOT:
+        return 0x0F
+    if gate_type == bf.LUT:
+        return int(func) & 0xFF
+    if not 0 <= gate_type < 16:
+        raise ValueError(f"gate type {gate_type} cannot be evaluated")
+    imm = 0
+    for k in range(8):
+        x, y = k >> 2 & 1, k >> 1 & 1
+        imm |= (gate_type >> ((1 - x) * 2 + (1 - y)) & 1) << k
+    return imm
+
+
+def pack_program(st: State) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Lowers the circuit for the kernel: (prog uint32[n, 4], out_slots
+    int32[n_out], n_slots).
+
+    One instruction per gate an output needs, in depth-first post-order
+    from the outputs (operands first, in input order), as
+    ``(imm | use_b << 8 | use_c << 9 | dst << 16, a, b, c)`` over value
+    slots: ``vals[dst] = lop3(vals[a], vals[b], vals[c], imm)``, where
+    ``use_b``/``use_c`` say whether the immediate reads b/c (an operand it
+    ignores names a's slot).  Inputs start in slots 0..n_in-1; a slot is
+    free again after its value's last reader, and the smallest free slot
+    takes each new value; outputs stay live to the end, read from
+    ``out_slots`` in ``output_bits`` order.  Raises ValueError on a gate the
+    kernel does not evaluate or an input that is not an earlier gate."""
     types, in1, in2, in3, funcs = gate_arrays(st)
-    n_in = st.num_inputs
-    prog = np.zeros((len(types), 2), dtype=np.uint32)
-    for g in range(n_in, len(types)):
+    n_in, n_gates = st.num_inputs, len(types)
+    outs = [int(st.outputs[b]) for b in output_bits(st)]
+    operands = {}
+    for g in range(n_in, n_gates):
         t = int(types[g])
         if t == bf.NOT:
             used = (in1[g],)
@@ -72,10 +117,51 @@ def pack_program(st: State) -> np.ndarray:
             raise ValueError(f"gate {g}: type {t} cannot be evaluated")
         if any(not 0 <= int(i) < g for i in used):
             raise ValueError(f"gate {g}: inputs {used} are not earlier gates")
-        ids = [int(i) for i in used] + [0] * (3 - len(used))
-        prog[g, 0] = ids[0] | (ids[1] << 16)
-        prog[g, 1] = ids[2] | (t << 16) | (int(funcs[g]) << 24)
-    return prog
+        operands[g] = tuple(int(i) for i in used)
+    # Depth-first post-order from the outputs: only the gates an output
+    # needs, each after its operands, close to their readers.
+    order, seen = [], set()
+    for root in outs:
+        stack = [(root, 0)]
+        while stack:
+            g, i = stack.pop()
+            if g < n_in or (i == 0 and g in seen):
+                continue
+            seen.add(g)
+            if i < len(operands[g]):
+                stack += [(g, i + 1), (operands[g][i], 0)]
+            else:
+                order.append(g)
+    last = {}
+    for i, g in enumerate(order):
+        for v in operands[g]:
+            last[v] = i
+    for v in outs:
+        last[v] = len(order)
+    slot = {i: i for i in range(n_in)}
+    free = [i for i in range(n_in) if i not in last]
+    heapq.heapify(free)
+    n_slots = n_in
+    prog = np.zeros((len(order), 4), dtype=np.uint32)
+    for i, g in enumerate(order):
+        ops = operands[g]
+        a, b, c = (ops + (ops[0],) * 2)[:3]
+        src = (slot[a], slot[b], slot[c])
+        for v in set(ops):
+            if last[v] == i:
+                heapq.heappush(free, slot.pop(v))
+        if free:
+            dst = heapq.heappop(free)
+        else:
+            dst, n_slots = n_slots, n_slots + 1
+        slot[g] = dst
+        imm = lop3_imm(int(types[g]), int(funcs[g]))
+        use_b = ((imm >> 2) ^ imm) & 0x33 != 0
+        use_c = ((imm >> 1) ^ imm) & 0x55 != 0
+        prog[i] = (imm | use_b << 8 | use_c << 9 | dst << 16, src[0],
+                   src[1] if use_b else src[0], src[2] if use_c else src[0])
+    out_slots = np.array([slot[v] for v in outs], dtype=np.int32)
+    return prog, out_slots, n_slots
 
 
 def compile_cuda(st: State, device="cuda") -> Callable:
@@ -86,11 +172,11 @@ def compile_cuda(st: State, device="cuda") -> Callable:
     the JAX package's ``compile_pallas`` and ``compile_circuit``."""
     dev = torch.device(device)
     plain = compile_circuit(st)
-    n_in, n_gates = st.num_inputs, st.num_gates
-    outs_np = np.array([st.outputs[b] for b in output_bits(st)], dtype=np.int32)
-    n_out = len(outs_np)
-    threads, smem = block_shape(n_gates)
-    prog = torch.from_numpy(pack_program(st).view(np.int32)).to(dev)
+    n_in = st.num_inputs
+    prog_np, outs_np, n_slots = pack_program(st)
+    n_prog, n_out = len(prog_np), len(outs_np)
+    threads, smem = block_shape(n_prog, n_slots)
+    prog = torch.from_numpy(prog_np.view(np.int32)).to(dev)
     outs = torch.from_numpy(outs_np).to(dev)
 
     def fn(inputs: torch.Tensor) -> torch.Tensor:
@@ -110,7 +196,7 @@ def compile_cuda(st: State, device="cuda") -> Callable:
         w = inputs.shape[1]
         out = torch.empty((n_out, w), dtype=torch.int32, device=inputs.device)
         err = _kernels.lib().sbgt_circuit_eval(
-            prog.data_ptr(), n_gates, n_in, outs.data_ptr(), n_out,
+            prog.data_ptr(), n_prog, n_in, outs.data_ptr(), n_out,
             inputs.data_ptr(), w, out.data_ptr(), threads, smem,
             _kernels.stream_ptr(inputs.device),
         )

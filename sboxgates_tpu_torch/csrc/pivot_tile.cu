@@ -24,6 +24,16 @@
 // x 8 w) are built once in shared memory and read as broadcasts.  Writes
 // are coalesced along the high axis.  The pre-expanded entry point packs
 // its int8 lanes back into words while staging, then runs the same body.
+//
+// The pivot sweep itself launches the window kernel (sbgt_pivot_window):
+// the same body for many tiles per launch (the grid's third axis is the
+// tile), each block reading its tile descriptor and pivot table itself and
+// fusing what followed every tile on the host — validity, the conflict test
+// (req1 & req0) == 0 and the feasible count — so that a whole window costs
+// one launch and one small copy of counts to the host, where the JAX
+// package's lut5_pivot_stream (sboxgates_tpu/ops/sweeps.py:1121) runs its
+// tile loop in one device dispatch.  The fused epilogue adds about 4
+// operations per candidate to the body's 576.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,6 +64,39 @@ __device__ __forceinline__ uint32_t pack_lanes(const int8_t* p) {
   return out;
 }
 
+// Verdict words of one candidate: this thread's high row against staged
+// low row l.
+__device__ __forceinline__ void cell_words(const LowTile& lt,
+                                           const uint32_t (&hw)[4][kWords],
+                                           int l, uint32_t& r1, uint32_t& r0) {
+  r1 = 0u;
+  r0 = 0u;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t x1[kWords], x0[kWords];
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+        x1[w] = lt.w[l][0][s][j][w];
+        x0[w] = lt.w[l][1][s][j][w];
+      }
+#pragma unroll
+      for (int c2 = 0; c2 < 4; ++c2) {
+        uint32_t a1 = 0u, a0 = 0u;
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          a1 |= x1[w] & hw[c2][w];
+          a0 |= x0[w] & hw[c2][w];
+        }
+        const int bit = (j << 3) | (s << 2) | c2;
+        r1 |= (a1 != 0u ? 1u : 0u) << bit;
+        r0 |= (a0 != 0u ? 1u : 0u) << bit;
+      }
+    }
+  }
+}
+
 // The shared tile body: verdict words for this thread's high row against
 // the block's staged low rows.
 __device__ __forceinline__ void tile_body(const LowTile& lt,
@@ -64,31 +107,8 @@ __device__ __forceinline__ void tile_body(const LowTile& lt,
   for (int l = 0; l < kBL; ++l) {
     const int lo = lo_base + l;
     if (lo >= tl) break;
-    uint32_t r1 = 0u, r0 = 0u;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t x1[kWords], x0[kWords];
-#pragma unroll
-        for (int w = 0; w < kWords; ++w) {
-          x1[w] = lt.w[l][0][s][j][w];
-          x0[w] = lt.w[l][1][s][j][w];
-        }
-#pragma unroll
-        for (int c2 = 0; c2 < 4; ++c2) {
-          uint32_t a1 = 0u, a0 = 0u;
-#pragma unroll
-          for (int w = 0; w < kWords; ++w) {
-            a1 |= x1[w] & hw[c2][w];
-            a0 |= x0[w] & hw[c2][w];
-          }
-          const int bit = (j << 3) | (s << 2) | c2;
-          r1 |= (a1 != 0u ? 1u : 0u) << bit;
-          r0 |= (a0 != 0u ? 1u : 0u) << bit;
-        }
-      }
-    }
+    uint32_t r1, r0;
+    cell_words(lt, hw, l, r1, r0);
     req1[(size_t)lo * th + h] = r1;
     req0[(size_t)lo * th + h] = r0;
   }
@@ -163,6 +183,110 @@ pivot_pre_kernel(const int8_t* __restrict__ lhs1,
   tile_body(lt, hw, lo_base, tl, h, th, req1, req0);
 }
 
+// The pivot window: tiles [t0, t0 + gridDim.z) of the descriptor list in
+// one launch, each tile's validity, conflict test and feasible count fused
+// behind the tile body above.  Descriptor row t is (m, lo0, lo_end, hi0,
+// hi_end); the pivot's polarity words come from tables[m] here.  A
+// candidate (l, h) of tile t is feasible when lo0 + l < lo_end,
+// lowvalid[lo0 + l], hi0 + h < hi_end, highvalid[hi0 + h], t < t_end and
+// (req1 & req0) == 0.  Per tile z of the window it writes req1/req0 (the
+// raw words, as K1) and feas (0/1 bytes) at [z][l][h], and adds the
+// feasible count to counts[z] (warp ballot + popc, one atomicAdd per
+// block; counts is zeroed by the launcher).  Tiles at or past t_end write
+// all-ones words and no feasible candidate, and read no descriptor.
+__global__ void __launch_bounds__(kBH)
+pivot_window_kernel(const uint32_t* __restrict__ tables,
+                    const uint32_t* __restrict__ l1,
+                    const uint32_t* __restrict__ l0, int lstride,
+                    const uint32_t* __restrict__ hcs, int hstride,
+                    const uint8_t* __restrict__ lowvalid,
+                    const uint8_t* __restrict__ highvalid,
+                    const int32_t* __restrict__ descs, int t0, int t_end,
+                    int tl, int th, uint32_t* __restrict__ req1,
+                    uint32_t* __restrict__ req0, uint8_t* __restrict__ feas,
+                    int32_t* __restrict__ counts) {
+  __shared__ LowTile lt;
+  __shared__ uint32_t pm[kWords];
+  __shared__ int lvalid[kBL];
+  __shared__ int warp_count[kBH / 32];
+  const int z = blockIdx.z;
+  const int t = t0 + z;
+  const size_t tile_off = (size_t)z * tl * th;
+  req1 += tile_off;
+  req0 += tile_off;
+  feas += tile_off;
+  const int lo_base = blockIdx.y * kBL;
+  const int h = blockIdx.x * kBH + threadIdx.x;
+  const bool h_in = h < th;
+  if (t >= t_end) {  // block-uniform
+    if (!h_in) return;
+    for (int l = 0; l < kBL && lo_base + l < tl; ++l) {
+      const size_t o = (size_t)(lo_base + l) * th + h;
+      req1[o] = 0xffffffffu;
+      req0[o] = 0xffffffffu;
+      feas[o] = 0;
+    }
+    return;
+  }
+  const int* d = descs + (size_t)t * 5;
+  const int m = d[0], lo0 = d[1], lo_end = d[2], hi0 = d[3], hi_end = d[4];
+  if (threadIdx.x < kWords) pm[threadIdx.x] = tables[(size_t)m * kWords + threadIdx.x];
+  if (threadIdx.x < kBL) {
+    const int lo = lo_base + threadIdx.x;
+    lvalid[threadIdx.x] =
+        lo < tl && lo0 + lo < lo_end && lowvalid[lo0 + lo] != 0;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kBL * 128; i += blockDim.x) {
+    const int w = i & 7, j = (i >> 3) & 3, s = (i >> 5) & 1,
+              rq = (i >> 6) & 1, l = i >> 7;
+    const int lo = lo_base + l;
+    uint32_t v = 0u;
+    if (lo < tl) {
+      const uint32_t* src = rq ? l0 : l1;
+      v = src[(size_t)j * lstride + (size_t)(lo0 + lo) * kWords + w] &
+          (s ? pm[w] : ~pm[w]);
+    }
+    lt.w[l][rq][s][j][w] = v;
+  }
+  __syncthreads();
+  // Every thread stays to the ballot; rows past th only vote "infeasible".
+  const bool h_ok = h_in && hi0 + h < hi_end && highvalid[hi0 + h] != 0;
+  uint32_t hw[4][kWords];
+#pragma unroll
+  for (int c2 = 0; c2 < 4; ++c2) {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      hw[c2][w] = h_in ? hcs[(size_t)c2 * hstride +
+                             (size_t)(hi0 + h) * kWords + w]
+                       : 0u;
+    }
+  }
+  int count = 0;
+  for (int l = 0; l < kBL; ++l) {
+    const int lo = lo_base + l;
+    if (lo >= tl) break;  // block-uniform
+    uint32_t r1, r0;
+    cell_words(lt, hw, l, r1, r0);
+    const bool f = h_ok && lvalid[l] && (r1 & r0) == 0u;
+    count += __popc(__ballot_sync(0xffffffffu, f));
+    if (h_in) {
+      const size_t o = (size_t)lo * th + h;
+      req1[o] = r1;
+      req0[o] = r0;
+      feas[o] = f ? 1 : 0;
+    }
+  }
+  if ((threadIdx.x & 31) == 0) warp_count[threadIdx.x >> 5] = count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < kBH / 32; ++i) sum += warp_count[i];
+    if (sum) atomicAdd(&counts[z], sum);
+  }
+}
+
 }  // namespace
 
 extern "C" int sbgt_pivot_packed(const void* l1, const void* l0, int lstride,
@@ -186,5 +310,28 @@ extern "C" int sbgt_pivot_pre(const void* lhs1, const void* lhs0,
   pivot_pre_kernel<<<grid, kBH, 0, (cudaStream_t)stream>>>(
       (const int8_t*)lhs1, (const int8_t*)lhs0, (const int8_t*)rhsb, tl, th,
       (uint32_t*)req1, (uint32_t*)req0);
+  return (int)cudaGetLastError();
+}
+
+// tiles [t0, t0 + n) of descs (int32[*, 5], only rows below t_end are read):
+// req1/req0 uint32[n, tl, th], feas uint8[n, tl, th], counts int32[n]
+// (zeroed here, on the same stream).
+extern "C" int sbgt_pivot_window(const void* tables, const void* l1,
+                                 const void* l0, int lstride, const void* hcs,
+                                 int hstride, const void* lowvalid,
+                                 const void* highvalid, const void* descs,
+                                 int t0, int n, int t_end, int tl, int th,
+                                 void* req1, void* req0, void* feas,
+                                 void* counts, void* stream) {
+  if (n <= 0 || tl <= 0 || th <= 0) return 0;
+  const cudaError_t e = cudaMemsetAsync(counts, 0, (size_t)n * sizeof(int32_t),
+                                        (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((th + kBH - 1) / kBH, (tl + kBL - 1) / kBL, n);
+  pivot_window_kernel<<<grid, kBH, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)tables, (const uint32_t*)l1, (const uint32_t*)l0,
+      lstride, (const uint32_t*)hcs, hstride, (const uint8_t*)lowvalid,
+      (const uint8_t*)highvalid, (const int32_t*)descs, t0, t_end, tl, th,
+      (uint32_t*)req1, (uint32_t*)req0, (uint8_t*)feas, (int32_t*)counts);
   return (int)cudaGetLastError();
 }

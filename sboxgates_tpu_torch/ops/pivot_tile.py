@@ -3,7 +3,10 @@
 Replaces the TPU kernels ``sboxgates_tpu/ops/pallas_pivot.py:133``
 (``pivot_constraints_pallas``, packed operands: K1) and ``:218``
 (``pivot_constraints_pallas_pre``, operands pre-expanded to int8 lanes: K2)
-with ``csrc/pivot_tile.cu``.
+with ``csrc/pivot_tile.cu``.  The pivot sweep runs K1 as
+:func:`pivot_window`: many tiles per launch, each with its validity,
+conflict test and feasible count fused into the kernel; the single-tile
+:func:`pivot_constraints` is no longer launched by any search path.
 
 For low row l, high row h and cell (s, j, c2), bit ``(j << 3) | (s << 2) |
 c2`` of ``req[l, h]`` is set when the low pair's cell j (pre-intersected
@@ -26,9 +29,16 @@ import torch
 
 from .. import _kernels
 
-#: Kernel launches by :func:`pivot_constraints` (K1) and
-#: :func:`pivot_constraints_pre` (K2).
-launches = {"packed": 0, "pre": 0}
+#: Kernel launches: ``"packed"`` by :func:`pivot_window` (K1 as the sweep
+#: runs it, one launch per window of tiles), ``"pre"`` by
+#: :func:`pivot_constraints_pre` (K2, one per tile) and ``"tile"`` by the
+#: single-tile :func:`pivot_constraints`.
+launches = {"packed": 0, "pre": 0, "tile": 0}
+
+#: Tiles swept by those launches (a window of n tiles adds n to
+#: ``"packed"``, each K2 launch 1 to ``"pre"``), and tiles of either that
+#: the pivot sweep handed to its decomposition solve (``"solved"``).
+tiles = {"packed": 0, "pre": 0, "solved": 0}
 
 # Packed-cell bit position for (pivot polarity s, low cell j, high cell c2):
 # (j << 3) | (s << 2) | c2 — the 32-cell key order shared with the 5-LUT
@@ -138,7 +148,7 @@ def pivot_constraints(l1, l0, hcs, pmw):
         req0.data_ptr(), _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "pivot_constraints")
-    launches["packed"] += 1
+    launches["tile"] += 1
     return req1, req0
 
 
@@ -170,4 +180,98 @@ def pivot_constraints_pre(lhs1, lhs0, rhsb):
     )
     _kernels.check(err, "pivot_constraints_pre")
     launches["pre"] += 1
+    tiles["pre"] += 1
     return req1, req0
+
+
+def pivot_window_plain(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
+                       t0, n, t_end, tl, th, out=None):
+    """Plain version of the window kernel: see :func:`pivot_window`."""
+    dev = lc1.device
+    if out is None:
+        out = window_buffers(n, tl, th, dev)
+    req1, req0, feas = (b[:n] for b in out)
+    req1.fill_(-1)
+    req0.fill_(-1)
+    feas.fill_(False)
+    rows_l = torch.arange(tl, device=dev)
+    rows_h = torch.arange(th, device=dev)
+    for z in range(n):
+        t = t0 + z
+        if t >= t_end:
+            continue
+        m, lo0, lo_end, hi0, hi_end = (int(x) for x in descs[t].tolist())
+        pm = tables[m]
+        r1, r0 = pivot_constraints_plain(
+            lc1[:, lo0 : lo0 + tl], lc0[:, lo0 : lo0 + tl],
+            hc[:, hi0 : hi0 + th], torch.stack([~pm, pm]),
+        )
+        lv = (lo0 + rows_l < lo_end) & lowvalid[lo0 : lo0 + tl]
+        hv = (hi0 + rows_h < hi_end) & highvalid[hi0 : hi0 + th]
+        req1[z], req0[z] = r1, r0
+        feas[z] = lv[:, None] & hv[None, :] & ((r1 & r0) == 0)
+    counts = feas.reshape(n, -1).sum(dim=1, dtype=torch.int32)
+    return req1, req0, feas, counts
+
+
+def window_buffers(n, tl, th, device):
+    """(req1, req0, feas) buffers for windows of up to ``n`` tiles."""
+    req1 = torch.empty((n, tl, th), dtype=torch.int32, device=device)
+    return (req1, torch.empty_like(req1),
+            torch.empty((n, tl, th), dtype=torch.bool, device=device))
+
+
+def pivot_window(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n,
+                 t_end, tl, th, out=None):
+    """K1 over a window of tiles ``[t0, t0 + n)`` of ``descs``, one launch:
+    (req1, req0) int32[n, tl, th] (the raw words of
+    :func:`pivot_constraints` for each tile), ``feas`` bool[n, tl, th] and
+    ``counts`` int32[n], the feasible candidates of each tile.
+
+    ``descs`` int32[*, 5] (m, lo0, lo_end, hi0, hi_end) on the tiles'
+    device; only rows below ``t_end`` are read, and tiles at or past it
+    have no feasible candidate and all-ones words.  ``tables`` int32[B, 8],
+    ``lc1``/``lc0``/``hc`` int32[4, P, 8] and ``lowvalid``/``highvalid``
+    bool[P] are :class:`PivotOperands`' arrays, padded so every tile's rows
+    are in range.  A candidate is feasible when its low and high rows are
+    in the tile's range and valid and ``req1 & req0 == 0``.  ``out`` may
+    hold :func:`window_buffers` of at least ``n`` tiles, used in place
+    (also by the plain version on the CPU)."""
+    dev = lc1.device
+    for name, t in (("tables", tables), ("lc1", lc1), ("lc0", lc0), ("hc", hc)):
+        if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 on {dev}")
+        if t.shape[-1] != 8:
+            raise ValueError(f"{name} must hold 8-word rows")
+    if lc1.shape != lc0.shape or lc1.shape[0] != 4 or hc.shape[0] != 4:
+        raise ValueError("lc1/lc0/hc must be [4, rows, 8]")
+    for name, t in (("lowvalid", lowvalid), ("highvalid", highvalid)):
+        if t.dtype != torch.bool or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bool vector on {dev}")
+    if (descs.dtype != torch.int32 or descs.device != dev
+            or not descs.is_contiguous() or descs.shape[-1] != 5):
+        raise ValueError("descs must be a contiguous int32[*, 5] on the tiles' device")
+    if t0 < 0 or t_end > descs.shape[0]:
+        raise ValueError("the window's descriptors are out of range")
+    if out is None:
+        out = window_buffers(n, tl, th, dev)
+    req1, req0, feas = (b[:n] for b in out)
+    if req1.shape != (n, tl, th) or feas.dtype != torch.bool:
+        raise ValueError("window buffers do not fit the window")
+    if not lc1.is_cuda:
+        return pivot_window_plain(
+            tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n, t_end, tl,
+            th, out=out,
+        )
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _kernels.lib().sbgt_pivot_window(
+        tables.data_ptr(), lc1.data_ptr(), lc0.data_ptr(), lc1.stride(0),
+        hc.data_ptr(), hc.stride(0), lowvalid.data_ptr(), highvalid.data_ptr(),
+        descs.data_ptr(), t0, n, t_end, tl, th, req1.data_ptr(),
+        req0.data_ptr(), feas.data_ptr(), counts.data_ptr(),
+        _kernels.stream_ptr(dev),
+    )
+    _kernels.check(err, "pivot_window")
+    launches["packed"] += 1
+    tiles["packed"] += n
+    return req1, req0, feas, counts

@@ -38,13 +38,14 @@ import numpy as np
 import torch
 
 from ..core import ttable as tt
-from . import combinatorics, spectral
+from . import combinatorics, pivot_tile, spectral
 from .lut5_filter import cell_requirements, lut5_filter_cells, pack_bits
 from .pivot_tile import (
     PIVOT_CELLBITS,
     expand_lanes,
-    pivot_constraints,
     pivot_constraints_pre,
+    pivot_window,
+    window_buffers,
 )
 
 M32 = 0xFFFFFFFF
@@ -633,6 +634,13 @@ _PIVOT_CELLBITS = PIVOT_CELLBITS
 
 PIVOT_BACKENDS = ("packed", "pre")
 
+#: Most tiles in one window of the pivot sweep on the packed backend.  The
+#: windows start at one tile and double up to this cap, so a hit in the
+#: first tiles costs what one tile costs, and a long sweep runs full
+#: windows (buffers: 64 x 2 MB of req words and 64 x 256 KB of feasible
+#: flags at 512 x 512 tiles).
+PIVOT_WINDOW_TILES = 64
+
 
 def _pivot_tile_valid(lowvalid, highvalid, d, tl, th):
     """The tile's validity mask (boundary + exclusion rows)."""
@@ -643,41 +651,41 @@ def _pivot_tile_valid(lowvalid, highvalid, d, tl, th):
     return lv[:, None] & hv[None, :]
 
 
-def pivot_tile_constraints(tables, lc1, lc0, hc, d, tl, th, backend="packed"):
-    """(req1, req0) int32[tl, th] of one tile through the pivot kernels:
-    ``"packed"`` (K1) hands over the packed slices, ``"pre"`` (K2) the int8
-    lanes expanded here."""
+def _pivot_tile_pre(tables, lc1, lc0, hc, lowvalid, highvalid, d, tl, th):
+    """(feasible [tl*th], req1, req0 [tl, th]) of one tile through K2 (the
+    ``"pre"`` backend), its int8 lanes expanded here."""
     m, lo0, hi0 = int(d[0]), int(d[1]), int(d[3])
-    l1 = lc1[:, lo0 : lo0 + tl]
-    l0 = lc0[:, lo0 : lo0 + tl]
-    hcs = hc[:, hi0 : hi0 + th]
-    pm = tables[m]
-    if backend == "packed":
-        return pivot_constraints(l1, l0, hcs, torch.stack([~pm, pm]))
-    if backend != "pre":
-        raise ValueError(f"unknown pivot backend {backend!r}")
-    pmb = expand_lanes(pm)
+    pmb = expand_lanes(tables[m])
     pmsel = torch.stack([1 - pmb, pmb])                 # [2, 256]
-    l1m = (expand_lanes(l1)[None] * pmsel[:, None, None, :]).contiguous()
-    l0m = (expand_lanes(l0)[None] * pmsel[:, None, None, :]).contiguous()
-    return pivot_constraints_pre(l1m, l0m, expand_lanes(hcs).contiguous())
-
-
-def _pivot_tile(tables, lc1, lc0, hc, lowvalid, highvalid, d, tl, th, backend):
-    """(valid, feasible, req1, req0) [tl, th] of one tile."""
-    req1, req0 = pivot_tile_constraints(tables, lc1, lc0, hc, d, tl, th, backend)
+    l1m = (expand_lanes(lc1[:, lo0 : lo0 + tl])[None] * pmsel[:, None, None, :]).contiguous()
+    l0m = (expand_lanes(lc0[:, lo0 : lo0 + tl])[None] * pmsel[:, None, None, :]).contiguous()
+    req1, req0 = pivot_constraints_pre(
+        l1m, l0m, expand_lanes(hc[:, hi0 : hi0 + th]).contiguous()
+    )
     valid = _pivot_tile_valid(lowvalid, highvalid, d, tl, th)
-    return valid, valid & ((req1 & req0) == 0), req1, req0
+    return (valid & ((req1 & req0) == 0)).reshape(-1), req1, req0
+
+
+def _desc_rows(descs, lo, hi, device):
+    """Descriptor rows [lo, hi) of the host array, on ``device``."""
+    return torch.as_tensor(np.ascontiguousarray(descs[lo:hi], np.int32), device=device)
 
 
 def lut5_pivot_tile(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t, *, tl, th,
                     backend="packed"):
     """Feasibility + packed constraints of ONE tile (the overflow
-    re-drive): (feasible [tl*th], req1, req0)."""
-    _, feasible, req1, req0 = _pivot_tile(
-        tables, lc1, lc0, hc, lowvalid, highvalid, descs[t], tl, th, backend
-    )
-    return feasible.reshape(-1), req1.reshape(-1), req0.reshape(-1)
+    re-drive): (feasible [tl*th], req1, req0) — on the packed backend a
+    window of one tile."""
+    if backend == "pre":
+        feas, req1, req0 = _pivot_tile_pre(
+            tables, lc1, lc0, hc, lowvalid, highvalid, descs[t], tl, th
+        )
+    else:
+        req1, req0, feas, _ = pivot_window(
+            tables, lc1, lc0, hc, lowvalid, highvalid,
+            _desc_rows(descs, t, t + 1, lc1.device), 0, 1, 1, tl, th,
+        )
+    return feas.reshape(-1), req1.reshape(-1), req0.reshape(-1)
 
 
 def _pivot_tile_solve(feasible, req1, req0, d, w_tab, m_tab, seed_t, th, solve_rows):
@@ -705,6 +713,84 @@ def _pivot_tile_solve(feasible, req1, req0, d, w_tab, m_tab, seed_t, th, solve_r
     )
 
 
+def _pre_feasible_tiles(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
+                        t, t_end, tl, th):
+    """(tile, feasible, req1, req0) of every tile of [t, t_end) with a
+    feasible candidate, in order: one K2 launch and one sync per tile."""
+    for tt in range(t, t_end):
+        feas, req1, req0 = _pivot_tile_pre(
+            tables, lc1, lc0, hc, lowvalid, highvalid, descs[tt], tl, th
+        )
+        if bool(feas.any()):
+            yield tt, feas, req1, req0
+
+
+def pivot_window_schedule(t, t_end):
+    """The windows (first tile, tiles) that sweep [t, t_end): 1, 2, 4, ...
+    tiles, doubling up to :data:`PIVOT_WINDOW_TILES`, the last one cut at
+    t_end."""
+    n = 1
+    while t < t_end:
+        n = min(n, t_end - t)
+        yield t, n
+        t += n
+        n = min(2 * n, PIVOT_WINDOW_TILES)
+
+
+def _counts_reader(counts):
+    """Starts the copy of a window's tile counts to the host; returns the
+    function that waits for it and gives them as a list.  On the card the
+    copy goes to pinned memory behind an event, so the host can launch the
+    next window before it waits."""
+    if not counts.is_cuda:
+        return counts.tolist
+    host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(counts.device))
+
+    def read():
+        copied.synchronize()
+        return host.tolist()
+
+    return read
+
+
+def _window_feasible_tiles(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
+                           t, t_end, tl, th):
+    """(tile, feasible, req1, req0) of every tile of [t, t_end) with a
+    feasible candidate, in order, from the windows of
+    :func:`pivot_window_schedule`: each one launch of K1 and one copy of its
+    counts to the host.  Each window is launched before the previous one's
+    counts are read (two buffer sets), so the card does not wait for the
+    host between windows.  The tiles of a window past the one the caller
+    stops at, and the window after it, are swept and dropped."""
+    if t >= t_end:
+        return
+    dev = lc1.device
+    ddescs = _desc_rows(descs, t, t_end, dev)       # row i = tile t + i
+    bufs = [window_buffers(min(PIVOT_WINDOW_TILES, t_end - t), tl, th, dev)
+            for _ in range(2)]
+    pending = None
+    for i, (w0, n) in enumerate(pivot_window_schedule(t, t_end)):
+        req1, req0, feas, counts = pivot_window(
+            tables, lc1, lc0, hc, lowvalid, highvalid, ddescs, w0 - t, n,
+            t_end - t, tl, th, out=bufs[i % 2],
+        )
+        launched = (w0, req1, req0, feas, _counts_reader(counts))
+        if pending is not None:
+            yield from _counted_tiles(*pending)
+        pending = launched
+    if pending is not None:
+        yield from _counted_tiles(*pending)
+
+
+def _counted_tiles(w0, req1, req0, feas, read_counts):
+    """The tiles of one window with a feasible candidate, in order."""
+    for z in np.flatnonzero(read_counts()):
+        yield w0 + int(z), feas[z].reshape(-1), req1[z], req0[z]
+
+
 def lut5_pivot_stream(
     tables, lc1, lc0, hc, lowvalid, highvalid, descs, start_t, t_end,
     w_tab, m_tab, seed, *, tl, th, solve_rows=64, backend="packed",
@@ -714,28 +800,31 @@ def lut5_pivot_stream(
     ``descs`` is the host array of :func:`pivot_tile_descs`.  Returns
     int32[9] [status, m, lo_abs, hi_abs, sigma, func_outer, req1, req0,
     next_tile] — status as in :func:`lut5_stream` (the tile concerned is
-    next_tile - 1).  ``backend`` picks the tile kernel: ``"packed"`` (K1)
-    or ``"pre"`` (K2); the verdicts are identical."""
+    next_tile - 1); when the range is exhausted, fields 1-7 are the solve
+    of its last tile (zeros when that tile had no feasible candidate).
+    ``backend`` picks the tile kernel: ``"packed"`` (K1, in windows of up
+    to :data:`PIVOT_WINDOW_TILES` tiles) or ``"pre"`` (K2, one tile at a
+    time); the tiles are solved in order, each with seed ``seed ^ tile``,
+    so the verdict is the same for every backend and window cap."""
     if backend not in PIVOT_BACKENDS:
         raise ValueError(f"unknown pivot backend {backend!r}")
     seed = _wrap32(seed)
-    status, t = 0, int(start_t)
+    start_t, t_end = int(start_t), int(t_end)
+    args = (tables, lc1, lc0, hc, lowvalid, highvalid, descs, start_t, t_end, tl, th)
+    tiles = (
+        _pre_feasible_tiles(*args) if backend == "pre"
+        else _window_feasible_tiles(*args)
+    )
     rest = (0,) * 7
-    while status == 0 and t < t_end:
-        d = descs[t]
-        _, feas2d, req1, req0 = _pivot_tile(
-            tables, lc1, lc0, hc, lowvalid, highvalid, d, tl, th, backend
+    for t, feasible, req1, req0 in tiles:
+        pivot_tile.tiles["solved"] += 1
+        outs = _pivot_tile_solve(
+            feasible, req1, req0, descs[t], w_tab, m_tab, seed ^ t, th, solve_rows
         )
-        feasible = feas2d.reshape(-1)
-        if bool(feasible.any()):
-            outs = _pivot_tile_solve(
-                feasible, req1, req0, d, w_tab, m_tab, seed ^ t, th, solve_rows
-            )
-        else:
-            outs = (0,) * 8
-        status, rest = outs[0], outs[1:]
-        t += 1
-    return np.asarray([status, *rest, t], np.int32)
+        if outs[0] != 0:
+            return np.asarray([*outs, t + 1], np.int32)
+        rest = outs[1:] if t == t_end - 1 else rest
+    return np.asarray([0, *rest, max(start_t, t_end)], np.int32)
 
 
 # -------------------------------------------------------------------------

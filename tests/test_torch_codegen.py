@@ -11,6 +11,7 @@ card in tests/test_torch_cuda.py and chip_smoke.py.
 
 import glob
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -36,6 +37,9 @@ from sboxgates_tpu_torch.core import boolfunc as bf
 from sboxgates_tpu_torch.graph.state import GATES, State
 from sboxgates_tpu_torch.graph.xmlio import load_state
 from sboxgates_tpu_torch.utils.sbox import load_sbox
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_states import mixed_state  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -155,10 +159,13 @@ def test_conversion_errors_match_the_jax_cli(capsys, tmp_path):
 def test_circuit_kernel_rejects_what_it_cannot_take():
     """The wrapper raises on a program that does not fit the kernel's
     shared memory and on wrong operands; it never falls back."""
-    assert cuda_kernel.block_shape(7) == (256, 7 * 8 + 7 * 4 * 256)
-    assert cuda_kernel.block_shape(500) == (64, 500 * 8 + 500 * 4 * 64)
+    assert cuda_kernel.block_shape(7, 5) == (128, 7 * 16 + 5 * 16 * 128)
+    # 33 slots: three blocks of 128 threads per SM, as many threads as six
+    # of 64 or twelve of 32
+    assert cuda_kernel.block_shape(74, 33) == (128, 74 * 16 + 33 * 16 * 128)
+    assert cuda_kernel.block_shape(500, 400) == (32, 500 * 16 + 400 * 16 * 32)
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_kernel.block_shape(2000)
+        cuda_kernel.block_shape(500, 500)
     st = load_state(EXAMPLES[0])
     fn = compile_cuda(st, device="cpu")
     with pytest.raises(TypeError):
@@ -168,13 +175,97 @@ def test_circuit_kernel_rejects_what_it_cannot_take():
 
 
 def test_pack_program_layout():
+    """One instruction per live gate over reused slots: the XOR frees input
+    2's slot and takes it, the NOT takes it back, the LUT (the output)
+    reads slots 1, 2, 0 and takes slot 0; the dead AND is dropped."""
     st = State.init_inputs(3)
     a = st.add_gate(bf.XOR, 0, 2, GATES)
+    st.add_gate(bf.AND, 0, 1, GATES)
     n = st.add_not_gate(a, GATES)
     lut = st.add_lut(0xCA, 1, n, 0)
-    prog = cuda_kernel.pack_program(st)
-    assert prog.dtype == np.uint32 and prog.shape == (6, 2)
-    assert (prog[:3] == 0).all()
-    assert tuple(prog[a]) == (0 | 2 << 16, 0 | bf.XOR << 16)
-    assert tuple(prog[n]) == (a, bf.NOT << 16)
-    assert tuple(prog[lut]) == (1 | n << 16, 0 | bf.LUT << 16 | 0xCA << 24)
+    st.outputs[0] = lut
+    prog, out_slots, n_slots = cuda_kernel.pack_program(st)
+    assert prog.dtype == np.uint32 and prog.shape == (3, 4)
+    assert tuple(prog[0]) == (0x3C | 1 << 8 | 2 << 16, 0, 2, 0)
+    assert tuple(prog[1]) == (0x0F | 2 << 16, 2, 2, 2)
+    assert tuple(prog[2]) == (0xCA | 3 << 8 | 0 << 16, 1, 2, 0)
+    assert out_slots.tolist() == [0] and n_slots == 3
+
+
+def _lop3_plain(imm, a, b, c):
+    """lop3.b32 in torch: bit k of ``imm`` is the output where (a, b, c) =
+    (k >> 2, k >> 1, k) & 1."""
+    r = torch.zeros_like(a)
+    for k in range(8):
+        if imm >> k & 1:
+            r = r | ((a if k & 4 else ~a) & (b if k & 2 else ~b) & (c if k & 1 else ~c))
+    return r
+
+
+def _run_program(prog, out_slots, n_slots, x):
+    """The lowered program run as the kernel runs it, on torch words."""
+    vals = [None] * n_slots
+    for i in range(x.shape[0]):
+        vals[i] = x[i]
+    for ctrl, a, b, c in prog.tolist():
+        vals[ctrl >> 16] = _lop3_plain(ctrl & 0xFF, vals[a], vals[b], vals[c])
+    return torch.stack([vals[s] for s in out_slots.tolist()])
+
+
+@pytest.mark.parametrize("path", EXAMPLES + ["mixed"], ids=IDS + ["mixed_g200"])
+def test_lop3_program_matches_compile_circuit(path):
+    """K4's lowering on the CPU: the (imm8, a, b, c, dst) program over the
+    liveness slot plan, run by a plain LOP3, equals the plain evaluator
+    (ragged width, words with bit 31 set); ignored operands name a's slot,
+    and the plan needs no more slots than gates."""
+    st = mixed_state() if path == "mixed" else load_state(path)
+    prog, out_slots, n_slots = cuda_kernel.pack_program(st)
+    rng = np.random.default_rng(st.num_gates)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, size=(st.num_inputs, 37))
+                         .astype(np.int32))
+    assert torch.equal(_run_program(prog, out_slots, n_slots, x), compile_circuit(st)(x))
+    ctrl = prog[:, 0]
+    assert ((ctrl >> 8 & 1 == 1) | (prog[:, 2] == prog[:, 1])).all()
+    assert ((ctrl >> 9 & 1 == 1) | (prog[:, 3] == prog[:, 1])).all()
+    assert len(prog) <= st.num_gates - st.num_inputs and n_slots <= st.num_gates
+
+
+def test_select_tree_covers_the_immediates_that_ignore_c():
+    """The kernel's branch-free path for an immediate that ignores c (NOT,
+    2-input gates): the multiplexer trees over the immediate's bit masks
+    (csrc/circuit_eval.cu: eval_gate), mirrored here on bytes, give the
+    LOP3 of every such immediate."""
+    a, b = np.uint32(0xF0), np.uint32(0xCC)
+    sel = lambda s, x1, x0: (s & x1) | (~s & x0)  # noqa: E731
+    two_input = [imm for imm in range(256) if not ((imm >> 1) ^ imm) & 0x55]
+    assert len(two_input) == 16
+    for imm in two_input:
+        m = [np.uint32(0xFFFFFFFF * (imm >> k & 1)) for k in range(8)]
+        use_b = ((imm >> 2) ^ imm) & 0x33 != 0
+        if use_b:
+            got = sel(a, sel(b, m[6], m[4]), sel(b, m[2], m[0]))
+        else:
+            got = sel(a, m[4], m[0])
+        assert int(got) & 0xFF == imm, hex(imm)
+    kinds = {cuda_kernel.lop3_imm(f, 0) for f in range(16)} | {cuda_kernel.lop3_imm(bf.NOT, 0)}
+    assert kinds <= set(two_input)
+
+
+@pytest.mark.parametrize("kind", ["gate2", "not", "lut"])
+def test_lop3_imm_matches_gate_semantics(kind):
+    """Every gate's immediate, applied to the three input patterns, is the
+    gate's truth table (the port's ttable.eval_gate2 / eval_lut)."""
+    from sboxgates_tpu_torch.core import ttable as tt
+
+    a, b, c = (np.uint32(x) for x in (0xF0, 0xCC, 0xAA))
+    if kind == "gate2":
+        for f in range(16):
+            want = int(tt.eval_gate2(f, a, b)) & 0xFF
+            assert cuda_kernel.lop3_imm(f, 0) == want, f
+    elif kind == "not":
+        assert cuda_kernel.lop3_imm(bf.NOT, 0) == int(~a) & 0xFF
+    else:
+        for f in range(256):
+            assert cuda_kernel.lop3_imm(bf.LUT, f) == int(tt.eval_lut(f, a, b, c)) & 0xFF
+    with pytest.raises(ValueError):
+        cuda_kernel.lop3_imm(17, 0)

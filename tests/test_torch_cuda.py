@@ -10,6 +10,9 @@ The plain versions are held against the JAX package's Pallas kernels on the
 CPU in tests/test_torch_kernels.py.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,9 @@ import torch
 from sboxgates_tpu_torch.core import ttable as tt
 from sboxgates_tpu_torch.ops import combinatorics as comb
 from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile, sweeps
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_states import mixed_state  # noqa: E402
 
 
 def _cuda():
@@ -85,6 +91,73 @@ def test_cuda_pivot_kernels_match_plain(tl, th):
         assert torch.equal(a, w)
 
 
+def _planted_pivot(device, excl=()):
+    """Pivot operands of the planted G = 50 state of tests/planted.py,
+    built with the port (8 inputs, XOR gates, the 5-LUT 0xB4(0x2D(g12,
+    g26, g41), g19, g33) as the target), on ``device``."""
+    from sboxgates_tpu_torch.core import boolfunc as bf
+    from sboxgates_tpu_torch.graph.state import GATES, State
+    from sboxgates_tpu_torch.search.lut import PivotOperands
+
+    rng = np.random.default_rng(5)
+    st = State.init_inputs(8)
+    while st.num_gates < 50:
+        a, b = rng.choice(st.num_gates, size=2, replace=False)
+        st.add_gate(bf.XOR, int(a), int(b), GATES)
+    outer = tt.eval_lut(0x2D, st.table(12), st.table(26), st.table(41))
+    target = tt.eval_lut(0xB4, outer, st.table(19), st.table(33))
+    tabs = np.zeros((64, 8), np.uint32)
+    tabs[:50] = st.live_tables()
+    return PivotOperands(50, 256, 512, list(excl), sweeps.as_words(tabs, device),
+                         target, tt.mask_table(8), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t0,n,t_end", [(18, 1, 112), (0, 64, 112), (60, 64, 100)])
+def test_cuda_pivot_window_matches_plain(t0, n, t_end):
+    """The window kernel against its plain version on the same card
+    inputs: req words, feasible flags and counts, for one tile, a full
+    window and a window crossing t_end (tiles past it are all-ones and
+    infeasible)."""
+    dev = _cuda()
+    ops = _planted_pivot(dev, excl=(5,))
+    args = (ops.tables, ops.lc1, ops.lc0, ops.hc, ops.jlv, ops.jhv,
+            torch.from_numpy(ops.descs).to(dev), t0, n, min(t_end, ops.t_real),
+            256, 512)
+    before = dict(pivot_tile.launches), dict(pivot_tile.tiles)
+    got = pivot_tile.pivot_window(*args)
+    assert pivot_tile.launches["packed"] == before[0]["packed"] + 1
+    assert pivot_tile.tiles["packed"] == before[1]["packed"] + n
+    want = pivot_tile.pivot_window_plain(*args)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    if t0 <= 18 < t0 + n:
+        assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 64])
+@pytest.mark.parametrize("solve_rows", [64, 1])
+def test_cuda_pivot_stream_matches_cpu(cap, solve_rows, monkeypatch):
+    """The windowed stream on the card gives the CPU's verdict (a hit, or
+    an overflow with solve_rows=1), and launches one window per window."""
+    dev = _cuda()
+    monkeypatch.setattr(sweeps, "PIVOT_WINDOW_TILES", cap)
+    _, w_tab, m_tab = sweeps.lut5_split_tables()
+    out = []
+    for d in (torch.device("cpu"), dev):
+        ops = _planted_pivot(d)
+        before = pivot_tile.launches["packed"]
+        out.append(sweeps.lut5_pivot_stream(
+            *ops.stream_args(), 0, ops.t_real, sweeps.as_words(w_tab, d),
+            sweeps.as_words(m_tab, d), 2024, tl=256, th=512,
+            solve_rows=solve_rows,
+        ))
+    assert pivot_tile.launches["packed"] > before
+    np.testing.assert_array_equal(out[0], out[1])
+    assert out[1][0] == (1 if solve_rows == 64 else 2)
+
+
 @pytest.mark.cuda
 def test_cuda_streams_match_cpu():
     """A whole sweep on the card gives the CPU's verdict."""
@@ -127,27 +200,6 @@ def test_cuda_walsh_score_matches_plain(b, spectrum):
     assert torch.equal(got, spectral.gate_scores_plain(tables, spec))
 
 
-def _mixed_state(g=200, seed=5):
-    """8-input state grown to ``g`` gates with seeded NOT gates, 2-input
-    gates of every function and 3-LUTs; its last 8 gates are the outputs."""
-    from sboxgates_tpu_torch.core import boolfunc as bf
-    from sboxgates_tpu_torch.graph.state import GATES, NO_GATE, State
-
-    rng = np.random.default_rng(seed)
-    st = State.init_inputs(8)
-    while st.num_gates < g:
-        a, b, c = (int(x) for x in rng.choice(st.num_gates, size=3, replace=False))
-        kind = int(rng.integers(3))
-        if kind == 0:
-            st.add_gate(bf.NOT, a, NO_GATE, GATES)
-        elif kind == 1:
-            st.add_gate(int(rng.integers(16)), a, b, GATES)
-        else:
-            st.add_lut(int(rng.integers(256)), a, b, c)
-    st.outputs = list(range(g - 8, g))
-    return st
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [1, 2, 300, 4096 + 13])
 def test_cuda_circuit_eval_matches_plain(w):
@@ -156,7 +208,7 @@ def test_cuda_circuit_eval_matches_plain(w):
     from sboxgates_tpu_torch.codegen import compile_circuit, compile_cuda, cuda_kernel
 
     dev = _cuda()
-    st = _mixed_state(seed=w)
+    st = mixed_state(seed=w)
     rng = np.random.default_rng(w)
     x = _t(_words(rng, 8, w)).to(dev)
     before = cuda_kernel.launches
