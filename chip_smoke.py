@@ -11,18 +11,20 @@ prints no result.  Phases, each of which raises on failure:
 2. parity — each kernel against its plain PyTorch version on the card, on
    seeded inputs at the shapes the search gives it: the 5-LUT filter (K3)
    at N = 2^17 candidates over 64- and 512-row tables, with a full mask,
-   the 6-input mask of DES S1 and random mask words, the pivot tile
+   the 6-input mask of DES S1 and random mask words, the single-tile pivot
    kernels (K1 packed, K2 int8 lanes) at (tl, th) = (256, 512) and
-   (512, 512) on real pair-cell operands of a G = 200 state, K1's window
-   kernel (the pivot sweep's) on windows of 1 and 64 tiles and on one
-   crossing the end of the descriptors, at 256 x 512 on phase 4a's G = 99
-   state and planted target and at 512 x 512 on the G = 200 state, the
-   Walsh-score kernel (K5) at B = 64 and 512 gates against a target's
-   spectrum and a random int32 spectrum, and the circuit kernel (K4) on
-   every examples/*.xml and on a G = 200, 8-output state of NOT, 2-input
-   and LUT gates, at W = 2 words and W = 2^22 + 13 (a ragged edge).
-   Requires 0 differing words and times each version (CUDA events), K4 at
-   W = 2^22 and K5 also at a large B;
+   (512, 512) on real pair-cell operands of a G = 200 state, the window
+   kernels the pivot sweep runs (K1 on words, K2 on int8 lanes, on the
+   tensor cores) on windows of 1 and 64 tiles and on one crossing the end
+   of the descriptors, at 256 x 512 on phase 4a's G = 99 state and
+   planted target and at 512 x 512 on the G = 200 state, with
+   torch._int_mm on one tile's K2 operands timed beside K2 as a yardstick,
+   the Walsh-score kernel (K5) at B = 64, 512 and 2^20 gates against a
+   target's spectrum, a random int32 spectrum and an extreme one, and the
+   circuit kernel (K4) on every examples/*.xml and on a G = 200, 8-output
+   state of NOT, 2-input and LUT gates, at W = 2 words and W = 2^22 + 13
+   (a ragged edge).  Requires 0 differing words and times each version
+   (CUDA events), K4 at W = 2^22 and K5 also at the large B;
 3. main path — ``python -m sboxgates_tpu_torch -l -o 0 --seed 1
    sboxes/des_s1.txt`` in process: every output gate is checked against the
    S-box, and the XML bytes against the file the JAX package wrote for the
@@ -35,7 +37,7 @@ prints no result.  Phases, each of which raises on failure:
    deepest AES branch of examples/AES_RUN.md) and G = 200:
    a. the CLI resumes (``-g``) from the saved G = 99 state against an
       S-box whose output bit 0 is a planted 5-LUT, which the pivot sweep
-      finds, once with each pivot tile kernel: ``--pivot-backend packed``
+      finds, once with each pivot window kernel: ``--pivot-backend packed``
       (K1, the default) and ``--pivot-backend pre`` (K2).  The output gate
       is checked, and the XML bytes against the file the JAX package wrote
       for the same command
@@ -43,7 +45,9 @@ prints no result.  Phases, each of which raises on failure:
    b. the full 5-LUT space against a random target on the packed (K1)
       backend at G = 99 and G = 200: candidates/s, windows, tiles swept
       and tiles solved printed, then the sweep alone again under
-      torch.profiler for its busy share (device time over that run's wall);
+      torch.profiler for its busy share (device time over that run's
+      wall), and the sweep alone on the pre (K2) backend, its
+      candidates/s beside the packed one's;
    c. a torch.profiler window over 400 tiles of the G = 200 sweep: the
       device's busy share of the profiled wall, device operations per tile
       and its time by kernel;
@@ -61,10 +65,11 @@ prints no result.  Phases, each of which raises on failure:
 The CLI runs (phases 3, 4a, 5) and phase 6 are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
-kernel and K2 on the G = 99 resume with their backend, K5 on the spectral
-G = 99 resume, K4 on codegen), K5 never on a lexicographic path nor on DES
-S1 spectral, the single-tile K1 on no path, and K1–K3 (launches and tiles)
-as often on the lexicographic paths as LEX_LAUNCHES records.  Phases 4b and 4c call the
+kernel and K2's on the G = 99 resume with their backend, K5 on the
+spectral G = 99 resume, K4 on codegen), K5 never on a lexicographic path
+nor on DES S1 spectral, the single-tile K1 and K2 on no path, and K1–K3
+(launches and tiles) as often on the lexicographic paths as LEX_LAUNCHES
+records.  Phases 4b and 4c call the
 sweep directly and report their launches in their own lines only.  The last
 lines are one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -89,8 +94,8 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden")
 EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "*.xml")))
 
 # K1-K3 launches of the lexicographic CLI runs, each counted from 0.  The
-# G = 99 resume consumes 114 pivot tiles (its hit is in tile 113): K2 sweeps
-# them one launch each; K1 sweeps them in the windows of
+# G = 99 resume consumes 114 pivot tiles (its hit is in tile 113): K1
+# (packed) or K2 (pre) sweeps them in the windows of
 # sweeps.pivot_window_schedule, 1, 2, 4, ..., 64 tiles, one window ahead of
 # the host: 8 launches over tiles [0, 191), the hit's window [63, 127) and
 # the one launched behind it, [127, 191), swept past the hit and dropped.
@@ -99,8 +104,8 @@ LEX_LAUNCHES = {
     "des_s1": {"lut5_filter": 132, "pivot_window": 0, "pivot_pre": 0},
     "g99_packed": {"lut5_filter": 0, "pivot_window": 8, "pivot_window_tiles": 191,
                    "pivot_pre": 0},
-    "g99_pre": {"lut5_filter": 0, "pivot_window": 0, "pivot_pre": 114,
-                "pivot_pre_tiles": 114},
+    "g99_pre": {"lut5_filter": 0, "pivot_window": 0, "pivot_pre": 8,
+                "pivot_pre_tiles": 191},
 }
 G99_TILES = 114
 G99_CANDIDATES = 2061108
@@ -149,10 +154,15 @@ def profiled(fn, warm_up):
     under torch.profiler, wall on the host's clock up to a device sync.
     ``warm_up`` runs first, in the profiler's warm-up step: a trace that
     starts with the measured work loses its first device operations (on
-    the H100, the first 5-7 windows of a pivot sweep)."""
+    the H100, the first 5-7 windows of a pivot sweep, and in one run 14 of
+    a G = 99 sweep's 23 windows despite the warm-up).  The measured work
+    also starts and ends ``margin`` seconds inside the active step, off the
+    wall: device operations whose timestamps fall just outside the step's
+    span on the host's clock are not in its trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    margin = 0.05
     got = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
@@ -160,10 +170,12 @@ def profiled(fn, warm_up):
         warm_up()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(margin)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(margin)
         prof.step()
     return got[0], wall_us, out
 
@@ -297,14 +309,12 @@ def phase_parity(dev) -> dict:
             )
     out["lut5_filter"] = k3
 
-    # K1/K2: real pair-cell operands of a G = 200 state, one mid-space tile
-    # per production shape.
+    # K1/K2 single tiles (on no search path): real pair-cell operands of a
+    # G = 200 state, one mid-space tile per production shape.
     st = random_state(200, 7)
     target = rng.integers(0, 2**32, size=8, dtype=np.uint64).astype(np.uint32)
     mask = np.full(8, 0xFFFFFFFF, np.uint32)
     tables = words(np.pad(st.live_tables(), ((0, 512 - 200), (0, 0))))
-    res = {"packed": {"mismatches": 0, "max_abs_err": 0},
-           "pre": {"mismatches": 0, "max_abs_err": 0}}
     for tl, th in ((256, 512), (512, 512)):
         ops_ = PivotOperands(200, tl, th, [], tables, target, mask, dev)
         d = ops_.descs[len(ops_.descs) // 2]
@@ -314,52 +324,31 @@ def phase_parity(dev) -> dict:
         hcs = ops_.hc[:, hi0 : hi0 + th]
         pm = tables[m]
         pmw = torch.stack([~pm, pm])
-        got1 = pivot_tile.pivot_constraints(l1, l0, hcs, pmw)
-        want1 = pivot_tile.pivot_constraints_plain(l1, l0, hcs, pmw)
-        r = compare(f"K1 pivot_constraints {tl}x{th}", got1, want1)
-        res["packed"]["mismatches"] += r["mismatches"]
-        res["packed"]["max_abs_err"] = max(res["packed"]["max_abs_err"], r["max_abs_err"])
         pmb = pivot_tile.expand_lanes(pm)
         pmsel = torch.stack([1 - pmb, pmb])
         lhs1 = (pivot_tile.expand_lanes(l1)[None] * pmsel[:, None, None, :]).contiguous()
         lhs0 = (pivot_tile.expand_lanes(l0)[None] * pmsel[:, None, None, :]).contiguous()
         rhsb = pivot_tile.expand_lanes(hcs).contiguous()
-        got2 = pivot_tile.pivot_constraints_pre(lhs1, lhs0, rhsb)
-        want2 = pivot_tile.pivot_constraints_pre_plain(lhs1, lhs0, rhsb)
-        r = compare(f"K2 pivot_constraints_pre {tl}x{th}", got2, want2)
-        res["pre"]["mismatches"] += r["mismatches"]
-        res["pre"]["max_abs_err"] = max(res["pre"]["max_abs_err"], r["max_abs_err"])
-        compare(f"K1 vs K2 {tl}x{th}", got1, got2)
-        if (tl, th) == (512, 512):
-            cand = tl * th
-            ops = cand * (2 * 32 * 8 + 2 * 32)
-            k1 = lambda: pivot_tile.pivot_constraints(l1, l0, hcs, pmw)  # noqa: E731
-            k2 = lambda: pivot_tile.pivot_constraints_pre(lhs1, lhs0, rhsb)  # noqa: E731
-            res["packed"].update(
-                ms=time_ms(k1, 50),
-                device_ms=kernel_device_ms(k1, "pivot_packed_kernel"),
-                plain_ms=time_ms(
-                    lambda: pivot_tile.pivot_constraints_plain(l1, l0, hcs, pmw), 3
-                ),
-                shape=f"{tl}x{th}", ops=ops,
-                bytes=2 * 4 * tl * 8 * 4 + 4 * th * 8 * 4 + 64 + 2 * cand * 4,
-                tc_ops=2 * 2 * (8 * tl) * (4 * th) * 256,
-            )
-            res["pre"].update(
-                ms=time_ms(k2, 50),
-                device_ms=kernel_device_ms(k2, "pivot_pre_kernel"),
-                plain_ms=time_ms(
-                    lambda: pivot_tile.pivot_constraints_pre_plain(lhs1, lhs0, rhsb), 3
-                ),
-                shape=f"{tl}x{th}", ops=ops,
-                bytes=2 * 2 * 4 * tl * 256 + 4 * th * 256 + 2 * cand * 4,
-                tc_ops=2 * 2 * (8 * tl) * (4 * th) * 256,
-            )
-    log(f"  K1 pivot_constraints (single tile, on no search path): "
-        f"{res['packed']['ms']:.4f} ms per call (device {res['packed']['device_ms']}), "
-        f"bound {bound(res['packed'])[0]:.5f} ms")
-    out["pivot_window"] = parity_window(dev, tables, target, mask)
-    out["pivot_pre"] = res["pre"]
+        runs = {
+            "tile": (lambda: pivot_tile.pivot_constraints(l1, l0, hcs, pmw),
+                     lambda: pivot_tile.pivot_constraints_plain(l1, l0, hcs, pmw),
+                     "K1 pivot_constraints", "pivot_packed_kernel"),
+            "pre_tile": (lambda: pivot_tile.pivot_constraints_pre(lhs1, lhs0, rhsb),
+                         lambda: pivot_tile.pivot_constraints_pre_plain(lhs1, lhs0, rhsb),
+                         "K2 pivot_constraints_pre", "pivot_pre_kernel"),
+        }
+        got = {}
+        for key, (kern, plain, label, kname) in runs.items():
+            got[key] = kern()
+            compare(f"{label} {tl}x{th}", got[key], plain())
+            if (tl, th) == (512, 512):
+                ms = time_ms(kern, 50)
+                dms = kernel_device_ms(kern, kname)
+                log(f"  {label} (single tile, on no search path) {tl}x{th}: "
+                    f"{ms:.4f} ms per call (device {dms})")
+        compare(f"K1 vs K2 {tl}x{th}", got["tile"], got["pre_tile"])
+    out["pivot_window"] = parity_window(dev, tables, target, mask, "packed")
+    out["pivot_pre"] = parity_window(dev, tables, target, mask, "pre")
     out["walsh_score"] = parity_walsh(dev, rng)
     out["circuit_eval"] = parity_circuit(dev)
     for name, r in out.items():
@@ -370,30 +359,45 @@ def phase_parity(dev) -> dict:
     return out
 
 
-def window_cost(n: int, tl: int, th: int) -> dict:
-    """Bytes and 32-bit operations of a window of ``n`` pivot tiles: per
-    tile its descriptor, pivot table, low rows (2 x 4 cells x 32 B), high
-    rows (4 cells x 32 B) and validity bytes in, 9 B per candidate and a
-    count out; per candidate K1's 576 AND-OR and pack steps and 4 of the
-    fused epilogue (the validity and, the conflict and, its test, the
-    count), the ballot and popc per 32 candidates beside them."""
+def window_cost(n: int, tl: int, th: int, backend: str) -> dict:
+    """Bytes and operations of a window of ``n`` pivot tiles.  Bytes: per
+    tile its descriptor, pivot table, low rows (2 x 4 cells) and high rows
+    (4 cells), as 32 B of words on the packed backend and 256 B of int8
+    lanes on pre, and validity bytes in; 9 B per candidate and a count out.
+    Operations, one per formulation of the same function: K1's 576 AND-OR
+    and pack steps and 4 of the fused epilogue per candidate on the integer
+    pipe (``ops``), and the TPU's two int8 GEMMs per tile,
+    2 x 2 x (8 tl) x (4 th) x 256, on the tensor cores (``tc_ops``)."""
     cand = tl * th
-    per_tile_in = 20 + 32 + tl * 2 * 4 * 32 + th * 4 * 32 + tl + th
+    row = 32 if backend == "packed" else 256
+    per_tile_in = 20 + 32 + tl * 2 * 4 * row + th * 4 * row + tl + th
     return {"bytes": n * (per_tile_in + 9 * cand + 4),
-            "ops": n * cand * (576 + 4)}
+            "ops": n * cand * (576 + 4),
+            "tc_ops": n * 2 * 2 * (8 * tl) * (4 * th) * 256}
 
 
-def parity_window(dev, tables, target, mask) -> dict:
-    """The window kernel (K1 as the pivot sweep runs it) against its plain
-    version at both of the sweep's tile shapes: 256 x 512 on the G = 99
-    state and planted target of phase 4a (the shape of the g99_packed
-    resume and of phase 4b's G = 99 sweep; windows from tile 100, which
-    hold tile 113's feasible candidate) and 512 x 512 on the G = 200 state
-    of the K1 parity (``tables``, ``target``, ``mask``; windows from its
-    middle tile).  At each: one tile, a full window of 64 tiles and a
-    window crossing the end of the descriptors (its last 54 tiles past
-    t_end); timed per launch at 64 tiles (the sweep's full window) and 1
-    (its first window).  The row is the 64-tile window at 512 x 512."""
+WINDOWS = {
+    # backend: (window kernel, its plain version, label, kernel name)
+    "packed": ("pivot_window", "pivot_window_plain", "K1 pivot_window",
+               "pivot_window_kernel"),
+    "pre": ("pivot_pre_window", "pivot_pre_window_plain", "K2 pivot_pre_window",
+            "pivot_pre_kernel"),
+}
+
+
+def parity_window(dev, tables, target, mask, backend) -> dict:
+    """The window kernel of ``backend`` (K1 or K2 as the pivot sweep runs
+    them) against its plain version at both of the sweep's tile shapes:
+    256 x 512 on the G = 99 state and planted target of phase 4a (the shape
+    of the g99 resumes and of phase 4b's G = 99 sweep; windows from tile
+    100, which hold tile 113's feasible candidate) and 512 x 512 on the
+    G = 200 state of the single-tile parity (``tables``, ``target``,
+    ``mask``; windows from its middle tile).  At each: one tile, a full
+    window of 64 tiles and a window crossing the end of the descriptors
+    (its last 54 tiles past t_end); timed per launch at 64 tiles (the
+    sweep's full window) and 1 (its first window).  The row is the 64-tile
+    window at 512 x 512; for K2, ``gemm_only_ms`` times torch._int_mm on
+    one tile's operands beside it."""
     import numpy as np
     import torch
 
@@ -401,6 +405,8 @@ def parity_window(dev, tables, target, mask) -> dict:
     from sboxgates_tpu_torch.ops import pivot_tile, sweeps
     from sboxgates_tpu_torch.search.lut import PivotOperands
 
+    kname, pname, label, kernel = WINDOWS[backend]
+    kern, plain = getattr(pivot_tile, kname), getattr(pivot_tile, pname)
     st99 = random_state(99, 11)
     states = {
         (256, 512): (99, sweeps.as_words(
@@ -411,66 +417,101 @@ def parity_window(dev, tables, target, mask) -> dict:
     r = {"mismatches": 0, "max_abs_err": 0}
     timed = {}
     for (tl, th), (g, tabs, tgt, msk, t_first) in states.items():
-        ops = PivotOperands(g, tl, th, [], tabs, tgt, msk, dev)
+        ops = PivotOperands(g, tl, th, [], tabs, tgt, msk, dev, backend=backend)
         descs = torch.from_numpy(ops.descs).to(dev)
         t_real = ops.t_real
         mid = t_real // 2 if t_first is None else t_first
-        args = (ops.tables, ops.lc1, ops.lc0, ops.hc, ops.jlv, ops.jhv, descs)
+        args = (*ops.stream_args()[:6], descs)
         feasible = 0
         for t0, n in ((mid, 1), (mid, 64), (t_real - 10, 64)):
-            got = pivot_tile.pivot_window(*args, t0, n, t_real, tl, th)
-            want = pivot_tile.pivot_window_plain(*args, t0, n, t_real, tl, th)
-            c = compare(f"K1 pivot_window G={g} {tl}x{th} tiles [{t0}, {t0 + n}) "
+            got = kern(*args, t0, n, t_real, tl, th)
+            want = plain(*args, t0, n, t_real, tl, th)
+            c = compare(f"{label} G={g} {tl}x{th} tiles [{t0}, {t0 + n}) "
                         f"of {t_real} ({int(want[3].sum())} feasible)", got, want)
             feasible += int(want[3].sum())
             r["mismatches"] += c["mismatches"]
             r["max_abs_err"] = max(r["max_abs_err"], c["max_abs_err"])
         if t_first is not None and not feasible:
-            raise AssertionError(f"K1 pivot_window G={g}: the compared windows "
+            raise AssertionError(f"{label} G={g}: the compared windows "
                                  "hold no feasible candidate")
         for n in (64, 1):
-            run = lambda n=n: pivot_tile.pivot_window(*args, mid, n, t_real, tl, th)  # noqa: E731
+            run = lambda n=n: kern(*args, mid, n, t_real, tl, th)  # noqa: E731
             t = dict(
                 ms=time_ms(run, 20 if n > 1 else 50),
-                device_ms=kernel_device_ms(run, "pivot_window_kernel"),
-                plain_ms=time_ms(
-                    lambda n=n: pivot_tile.pivot_window_plain(
-                        *args, mid, n, t_real, tl, th),
-                    1, warmup=1),
+                device_ms=kernel_device_ms(run, kernel),
+                plain_ms=time_ms(lambda n=n: plain(*args, mid, n, t_real, tl, th),
+                                 1, warmup=1),
                 shape=f"{n} tiles of {tl}x{th} (G={g})", tiles=n,
-                **window_cost(n, tl, th),
+                **window_cost(n, tl, th, backend),
             )
             timed[(tl, th, n)] = t
             dms = t["device_ms"]
-            log(f"  K1 pivot_window G={g}, {n} tiles of {tl}x{th}: {t['ms']:.4f} ms "
+            b_ms, b_by, b_form = bound(t)
+            log(f"  {label} G={g}, {n} tiles of {tl}x{th}: {t['ms']:.4f} ms "
                 f"per launch, {t['ms'] / n:.5f} ms per tile (device "
                 f"{'not in the trace' if dms is None else f'{dms / n:.5f} ms'} per "
-                f"tile), bound {bound(t)[0] / n:.5f} ms per tile by {bound(t)[1]}")
+                f"tile), bound {b_ms / n:.5f} ms per tile by {b_by} ({b_form})")
+        if backend == "pre" and (tl, th) == (512, 512):
+            r["gemm_only_ms"] = gemm_only_ms(ops, int(ops.descs[mid][0]),
+                                             int(ops.descs[mid][1]),
+                                             int(ops.descs[mid][3]), tl, th)
     r.update(timed.pop((512, 512, 64)))
     r["also"] = [timed[(512, 512, 1)], timed[(256, 512, 64)], timed[(256, 512, 1)]]
     return r
 
 
-def walsh_cost(b: int) -> dict:
-    """Bytes and 32-bit integer operations of K5 over ``b`` gates: 32 B of
-    table in and 4 B of score out per gate plus the 1 KB spectrum.  The
-    least work: the transform is symmetric, so dot(WHT(x), s) equals
-    dot(x, WHT(s)), also modulo 2^32; WHT(s) is 8 stages of 256 adds, once,
-    and each gate then needs one add per table bit (a sum of +-WHT(s))."""
-    return {"bytes": b * (32 + 4) + 256 * 4, "ops": 8 * 256 + b * 256}
+def gemm_only_ms(ops, m: int, lo0: int, hi0: int, tl: int, th: int):
+    """The yardstick beside K2: torch._int_mm on one tile's operands
+    concatenated into one product, A int8 [2 req x 2 s x 4 j x tl, 256] (the
+    polarity folded in) and H int8 [256, 4 th]: the count matrix only,
+    int32 [16 tl, 4 th] written out, no > 0 and no packing.  The port never
+    calls it.  Milliseconds per call (CUDA events)."""
+    import torch
+
+    from sboxgates_tpu_torch.ops import pivot_tile
+
+    l1, l0, hc = ops.lanes
+    pmb = pivot_tile.expand_lanes(ops.tables[m])
+    pmsel = torch.stack([1 - pmb, pmb])[:, None, None, :]
+    a = torch.stack([l1[None, :, lo0 : lo0 + tl] * pmsel,
+                     l0[None, :, lo0 : lo0 + tl] * pmsel]).reshape(-1, 256).contiguous()
+    h = hc[:, hi0 : hi0 + th].reshape(4 * th, 256).contiguous().t()
+    ms = time_ms(lambda: torch._int_mm(a, h), 20)
+    log(f"  gemm_only (torch._int_mm, [{a.shape[0]}, 256] x [256, {h.shape[1]}], "
+        f"{4 * a.shape[0] * h.shape[1] / 2**20:.0f} MB of int32 counts): "
+        f"{ms:.4f} ms per tile")
+    return ms
+
+
+WALSH_THREADS = 512     # csrc/walsh_score.cu: threads per block
+
+
+def walsh_cost(b: int, sms: int) -> dict:
+    """Bytes and 32-bit integer operations of K5 over ``b`` gates, as the
+    kernel computes the function (one transform of the spectrum per block,
+    then a byte-table sum per gate): 32 B of table in and 4 B of score out
+    per gate plus the 1 KB spectrum; per block the 8 x 256 adds of
+    WHT(spectrum) and 8,192 for its byte table (a lookup table of 32 x 256
+    sums), per gate 32 lookups and 32 adds.  The grid has at most two
+    blocks per SM (``sms`` of them)."""
+    blocks = min((b + WALSH_THREADS - 1) // WALSH_THREADS, 2 * sms)
+    return {"bytes": b * (32 + 4) + 256 * 4,
+            "ops": blocks * (8 * 256 + 8192) + b * 64}
 
 
 def parity_walsh(dev, rng) -> dict:
-    """K5 against its plain version at the search's table buckets, against
-    a target's spectrum and a random int32 spectrum (wrapping products, a
-    floor division of negative sums); timed at B = 512 (the path's shape),
-    B = 64 and, labelled as such, a large B = 2^20 where the bound means
-    something."""
+    """K5 against its plain version at the search's table buckets and a
+    large B = 2^20, on three spectra: a target's, a random int32 one and an
+    extreme one (every entry +-(2^31 - 1)), which exercise the wrapping
+    sums and the floor division of negative sums; timed at B = 512 (the
+    path's shape), B = 64 and, labelled as such, B = 2^20 where the bound
+    means something."""
     import numpy as np
     import torch
 
     from sboxgates_tpu_torch.ops import spectral, sweeps
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     words = lambda a: sweeps.as_words(a, dev)  # noqa: E731
     r = {"mismatches": 0, "max_abs_err": 0}
     timed = {}
@@ -483,6 +524,8 @@ def parity_walsh(dev, rng) -> dict:
             ),
             "random": torch.from_numpy(
                 rng.integers(-2**31, 2**31, size=256).astype("int32")).to(dev),
+            "extreme": torch.from_numpy(
+                (rng.choice([-1, 1], size=256) * (2**31 - 1)).astype("int32")).to(dev),
         }
         for sname, spec in specs.items():
             got = spectral.gate_scores_kernel(tables, spec)
@@ -497,7 +540,7 @@ def parity_walsh(dev, rng) -> dict:
             device_ms=kernel_device_ms(run, "walsh_score_kernel"),
             plain_ms=time_ms(lambda: spectral.gate_scores_plain(tables, spec), 5),
             shape=f"B={b}" + (" (large B, off the path)" if b > 512 else ""),
-            **walsh_cost(b),
+            **walsh_cost(b, sms),
         )
     r.update(timed[512])
     r["also"] = [timed[64], timed[1 << 20]]
@@ -775,8 +818,7 @@ def phase_pivot(dev) -> dict:
         target = rng.integers(0, 2**32, size=8, dtype=np.uint64).astype(np.uint32)
         ctx = SearchContext(Options(seed=1, lut_graph=True, device=dev.type))
         tiles = sweeps.pivot_tile_descs(g, *pivot_tile_shape(g), []).shape[0]
-        pivot_tile.launches.update(packed=0, pre=0, tile=0)
-        pivot_tile.tiles.update(packed=0, pre=0, solved=0)
+        zero_pivot_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = _lut5_search_pivot(ctx, st, target, mask, [])
@@ -816,9 +858,32 @@ def phase_pivot(dev) -> dict:
         busy_us, _ = device_summary(
             events, f"phase 4b profile G={g}, the whole sweep alone", prof_us, top=3)
         traced_windows(events)
+        # The same sweep alone on the pre backend (K2 windows over the lanes
+        # expanded once), after a warm-up over the first 200 tiles.
+        pre = PivotOperands(g, tl, th, [], ctx.device_tables(st), target, mask, dev,
+                            backend="pre")
+        sweeps.lut5_pivot_stream(*pre.stream_args(), 0, min(200, pre.t_real), jw, jm,
+                                 1, tl=tl, th=th, backend="pre")
+        zero_pivot_counts()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        v = sweeps.lut5_pivot_stream(*pre.stream_args(), 0, pre.t_real, jw, jm, 1,
+                                     tl=tl, th=th, backend="pre")
+        torch.cuda.synchronize()
+        sweep_pre = time.perf_counter() - t2
+        if int(v[0]) != 0 or int(v[8]) != tiles or pivot_tile.tiles["pre"] < tiles:
+            raise AssertionError(f"G={g}: the pre sweep returned {v.tolist()} over "
+                                 f"{pivot_tile.tiles['pre']} tiles")
+        log(f"phase 4b pivot sweep G={g} alone, pre (K2): {cand} candidates in "
+            f"{sweep_pre:.4f} s = {cand / sweep_pre:.4e} cand/s, "
+            f"{sweep_pre / tiles * 1e3:.5f} ms per tile, "
+            f"{pivot_tile.launches['pre']} windows; packed alone "
+            f"{cand / sweep:.4e} cand/s")
         rates[g] = {"candidates": cand, "seconds": wall, "cand_per_s": cand / wall,
                     "sweep_seconds": sweep, "sweep_cand_per_s": cand / sweep,
                     "sweep_busy": busy_us / prof_us,
+                    "sweep_pre_seconds": sweep_pre,
+                    "sweep_pre_cand_per_s": cand / sweep_pre,
                     "tiles": tiles, "windows": windows, "tiles_swept": swept,
                     "tiles_solved": solved}
         log(f"phase 4b pivot sweep G={g} (packed): {cand} candidates in "
@@ -873,13 +938,17 @@ def phase_profile_sweep(dev, tiles: int = 400) -> None:
         f"{wall_us / 1e3 / tiles:.5f} ms of profiled wall per tile")
 
 
+def zero_pivot_counts() -> None:
+    from sboxgates_tpu_torch.ops import pivot_tile
+
+    pivot_tile.launches.update(packed=0, pre=0, tile=0, pre_tile=0)
+    pivot_tile.tiles.update(packed=0, pre=0, solved=0)
+
+
 def counted(fn, *args):
     """``fn(*args)`` with the pivot launch and tile counts set to 0 just
     before it."""
-    from sboxgates_tpu_torch.ops import pivot_tile
-
-    pivot_tile.launches.update(packed=0, pre=0, tile=0)
-    pivot_tile.tiles.update(packed=0, pre=0, solved=0)
+    zero_pivot_counts()
     return fn(*args)
 
 
@@ -988,7 +1057,7 @@ KERNELS = {
                     "sboxgates_tpu/ops/pallas_filter.py:58", "des_s1"),
     "pivot_window": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
                      "sboxgates_tpu/ops/pallas_pivot.py:133", "g99_packed"),
-    "pivot_pre": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
+    "pivot_pre": ("cuda", "sboxgates_tpu_torch/csrc/pivot_pre.cu",
                   "sboxgates_tpu/ops/pallas_pivot.py:218", "g99_pre"),
     "walsh_score": ("cuda", "sboxgates_tpu_torch/csrc/walsh_score.cu",
                     "sboxgates_tpu/ops/spectral.py:119", "g99_spectral"),
@@ -998,11 +1067,19 @@ KERNELS = {
 
 
 def bound(r: dict):
-    """(bound_ms, bound_by) of a timed shape: the larger of its bytes over
-    the HBM rate and its 32-bit operations over the integer pipe's rate."""
+    """(bound_ms, bound_by, formulation) of a timed shape: the least time
+    the card could take, the larger of its bytes over the HBM rate and its
+    operations over their peak rate.  Where the same function has two
+    formulations (the pivot tile: 32-bit logic on the integer pipe, or the
+    TPU's int8 GEMMs on the tensor cores, ``tc_ops``), each is taken with
+    the bytes and the smaller bound is the shape's."""
     t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
-    t_ops = r["ops"] / INT32_OPS_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    forms = [(r["ops"] / INT32_OPS_S * 1e3, "integer pipe")]
+    if "tc_ops" in r:
+        forms.append((r["tc_ops"] / INT8_TC_OPS_S * 1e3, "int8 tensor cores"))
+    t_ops, form = min(forms)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            form)
 
 
 def main() -> int:
@@ -1030,8 +1107,7 @@ def main() -> int:
         """Launch counts of one main-path run: 0 right before, read right
         after."""
         lut5_filter.launches = 0
-        pivot_tile.launches.update(packed=0, pre=0, tile=0)
-        pivot_tile.tiles.update(packed=0, pre=0, solved=0)
+        zero_pivot_counts()
         spectral.launches = 0
         cuda_kernel.launches = 0
         drive()
@@ -1043,6 +1119,7 @@ def main() -> int:
             "pivot_pre_tiles": pivot_tile.tiles["pre"],
             "pivot_tiles_solved": pivot_tile.tiles["solved"],
             "pivot_tile": pivot_tile.launches["tile"],
+            "pivot_pre_tile": pivot_tile.launches["pre_tile"],
             "walsh_score": spectral.launches,
             "circuit_eval": cuda_kernel.launches,
         }
@@ -1078,8 +1155,8 @@ def main() -> int:
             raise AssertionError(f"{name} never launched on path {home}")
     if paths["g99_packed"]["pivot_pre"] or paths["g99_pre"]["pivot_window"]:
         raise AssertionError("--pivot-backend did not pick the tile kernel")
-    if any(c["pivot_tile"] for c in paths.values()):
-        raise AssertionError("a search path launched the single-tile K1")
+    if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
+        raise AssertionError("a search path launched a single-tile K1 or K2")
     for path in ("g99_packed", "g99_pre"):
         if stats[path].get("lut5_candidates") != G99_CANDIDATES:
             raise AssertionError(
@@ -1101,15 +1178,16 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces, home) in KERNELS.items():
         r = par[name]
-        bound_ms, bound_by = bound(r)
+        bound_ms, bound_by, bound_form = bound(r)
         also = []
         for extra in r.get("also", []):
-            b_ms, b_by = bound(extra)
+            b_ms, b_by, b_form = bound(extra)
             also.append({k: extra[k] for k in ("shape", "ms", "device_ms", "plain_ms")}
-                        | {"bound_ms": b_ms, "bound_by": b_by})
+                        | {"bound_ms": b_ms, "bound_by": b_by,
+                           "bound_formulation": b_form})
             log(f"  {name} at {extra['shape']}: {extra['ms']:.4f} ms per call "
                 f"(device {extra['device_ms']}), plain {extra['plain_ms']:.3f} ms, "
-                f"bound {b_ms:.5f} ms by {b_by}")
+                f"bound {b_ms:.5f} ms by {b_by} ({b_form})")
         per_tile = {}
         if "tiles" in r:
             per_tile = {"tiles": paths[home][f"{name}_tiles"],
@@ -1127,14 +1205,13 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "mismatches": r["mismatches"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_formulation": bound_form,
             "library_ms": None, "shape": r["shape"], "also": also,
-        })
-        if "tc_ops" in r:
-            log(f"  {name}: int8 tensor-core bound of the TPU formulation "
-                f"{r['tc_ops'] / INT8_TC_OPS_S * 1e3:.5f} ms per tile")
+        } | ({"gemm_only_ms": r["gemm_only_ms"]} if "gemm_only_ms" in r else {}))
     for g, r in rates.items():
         log(f"pivot G={g}: {r['cand_per_s']:.6e} cand/s (node), "
             f"{r['sweep_cand_per_s']:.6e} cand/s (sweep alone), "
+            f"{r['sweep_pre_cand_per_s']:.6e} cand/s (sweep alone, pre), "
             f"{100 * r['sweep_busy']:.1f}% busy (the sweep alone, profiled), "
             f"{r['windows']} windows, {r['tiles_solved']} of {r['tiles']} tiles solved")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -58,6 +58,10 @@ _SIGNATURES = {
                           _I, _I, _P, _P, _P, _P, _P],
     # lhs1, lhs0, rhsb, tl, th, req1, req0, stream
     "sbgt_pivot_pre": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # tables, l1, l0, hc, rows, lowvalid, highvalid, descs, t0, n, t_end,
+    # tl, th, req1, req0, feas, counts, stream
+    "sbgt_pivot_pre_window": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P, _P, _P, _P, _P],
     # tables, n_gates, spectrum, out, stream
     "sbgt_walsh_scores": [_P, _I, _P, _P, _P],
     # prog, n_prog, n_in, out_slots, n_out, inputs, w, out, threads, smem,

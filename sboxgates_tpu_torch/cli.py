@@ -11,8 +11,9 @@ for byte the files the JAX package writes for the same seed.
 hand-written kernels and fails when no card is usable; ``cpu`` must be asked
 for.  ``--pivot-backend`` picks the pivot 5-LUT tile kernel, the
 counterpart of the JAX package's ``SBG_PIVOT_BACKEND``: ``packed`` (the
-default) launches it on packed cell words, ``pre`` on int8 lanes expanded
-before the launch; both give the same files.  ``--candidate-order
+default) runs it on packed cell words on the integer pipe, ``pre`` on int8
+lanes expanded once per node, on the tensor cores; both sweep windows of
+tiles and give the same files.  ``--candidate-order
 spectral`` sweeps the candidate chunks and pivot tiles in Walsh-score tiers
 best-first (the Walsh-score kernel K5 on the card).  ``-c``/``-d`` convert a
 saved state to C/CUDA source or Graphviz DOT, the JAX package's text.  Gate

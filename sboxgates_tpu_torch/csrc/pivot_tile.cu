@@ -1,10 +1,9 @@
 // Pivot 5-LUT tile: packed Karnaugh-cell constraints of one (low pair x
 // high pair) tile of candidates {a<b<m<d<e} around a pivot gate m.
 //
-// Replaces the TPU kernels sboxgates_tpu/ops/pallas_pivot.py:133
-// (pivot_constraints_pallas, packed operands) and :218
-// (pivot_constraints_pallas_pre, operands pre-expanded to int8 lanes).
-// Both compute, for every low row l, high row h and cell (s, j, c2)
+// Replaces the TPU kernel sboxgates_tpu/ops/pallas_pivot.py:133
+// (pivot_constraints_pallas, packed operands: K1).  It computes, for every
+// low row l, high row h and cell (s, j, c2)
 //   bit (j << 3) | (s << 2) | c2 of req[l][h] = OR_w (L[j][l][w] & PM_s[w]
 //                                                     & H[c2][h][w]) != 0
 // where L is the low pair's cell j pre-intersected with the required-1 (or
@@ -14,7 +13,9 @@
 // a count is > 0 exactly when the three masks share a position
 // (sboxgates_tpu/ops/sweeps.py:858-861), so here each verdict is an
 // AND-OR chain on the integer pipe (one lop3 per word) and no count
-// matrix exists at all.
+// matrix exists at all.  The TPU's int8 form of the same function, from
+// operands expanded to lanes (:218, K2), runs on the tensor cores in
+// pivot_pre.cu.
 //
 // Bound on the H100: integer operations.  A candidate costs 2 (req1, req0)
 // x 32 cells x 8 words = 512 AND-OR steps plus 64 compare-and-pack steps,
@@ -22,8 +23,7 @@
 // of 128 threads owns 128 high rows (one per thread, its 4 x 8 high words
 // in registers) and 8 low rows, whose pivot-masked words (2 req x 2 s x 4 j
 // x 8 w) are built once in shared memory and read as broadcasts.  Writes
-// are coalesced along the high axis.  The pre-expanded entry point packs
-// its int8 lanes back into words while staging, then runs the same body.
+// are coalesced along the high axis.
 //
 // The pivot sweep itself launches the window kernel (sbgt_pivot_window):
 // the same body for many tiles per launch (the grid's third axis is the
@@ -48,21 +48,6 @@ constexpr int kWords = 8;
 struct LowTile {
   uint32_t w[kBL][2][2][4][kWords];
 };
-
-// Packs 32 int8 lanes (0/1 by contract) into one word, lane b -> bit b.
-__device__ __forceinline__ uint32_t pack_lanes(const int8_t* p) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const uint4 b = *reinterpret_cast<const uint4*>(p + 16);
-  const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  uint32_t out = 0u;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t m = __vcmpne4(v[i], 0u) & 0x01010101u;
-    const uint32_t nib = (m | (m >> 7) | (m >> 14) | (m >> 21)) & 0xFu;
-    out |= nib << (4 * i);
-  }
-  return out;
-}
 
 // Verdict words of one candidate: this thread's high row against staged
 // low row l.
@@ -144,40 +129,6 @@ pivot_packed_kernel(const uint32_t* __restrict__ l1,
 #pragma unroll
     for (int w = 0; w < kWords; ++w) {
       hw[c2][w] = hcs[(size_t)c2 * hstride + (size_t)h * kWords + w];
-    }
-  }
-  tile_body(lt, hw, lo_base, tl, h, th, req1, req0);
-}
-
-__global__ void __launch_bounds__(kBH)
-pivot_pre_kernel(const int8_t* __restrict__ lhs1,
-                 const int8_t* __restrict__ lhs0,
-                 const int8_t* __restrict__ rhsb, int tl, int th,
-                 uint32_t* __restrict__ req1, uint32_t* __restrict__ req0) {
-  __shared__ LowTile lt;
-  const int lo_base = blockIdx.y * kBL;
-  // lhs layout [2 s][4 j][tl][256]; the pivot polarity is already folded
-  // into the lanes.
-  for (int i = threadIdx.x; i < kBL * 128; i += blockDim.x) {
-    const int w = i & 7, j = (i >> 3) & 3, s = (i >> 5) & 1,
-              rq = (i >> 6) & 1, l = i >> 7;
-    const int lo = lo_base + l;
-    uint32_t v = 0u;
-    if (lo < tl) {
-      const int8_t* src = rq ? lhs0 : lhs1;
-      v = pack_lanes(src + ((size_t)(s * 4 + j) * tl + lo) * 256 + w * 32);
-    }
-    lt.w[l][rq][s][j][w] = v;
-  }
-  __syncthreads();
-  const int h = blockIdx.x * kBH + threadIdx.x;
-  if (h >= th) return;
-  uint32_t hw[4][kWords];
-#pragma unroll
-  for (int c2 = 0; c2 < 4; ++c2) {
-#pragma unroll
-    for (int w = 0; w < kWords; ++w) {
-      hw[c2][w] = pack_lanes(rhsb + ((size_t)c2 * th + h) * 256 + w * 32);
     }
   }
   tile_body(lt, hw, lo_base, tl, h, th, req1, req0);
@@ -298,17 +249,6 @@ extern "C" int sbgt_pivot_packed(const void* l1, const void* l0, int lstride,
   pivot_packed_kernel<<<grid, kBH, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)l1, (const uint32_t*)l0, lstride,
       (const uint32_t*)hcs, hstride, (const uint32_t*)pmw, tl, th,
-      (uint32_t*)req1, (uint32_t*)req0);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sbgt_pivot_pre(const void* lhs1, const void* lhs0,
-                              const void* rhsb, int tl, int th, void* req1,
-                              void* req0, void* stream) {
-  if (tl <= 0 || th <= 0) return 0;
-  const dim3 grid((th + kBH - 1) / kBH, (tl + kBL - 1) / kBL);
-  pivot_pre_kernel<<<grid, kBH, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)lhs1, (const int8_t*)lhs0, (const int8_t*)rhsb, tl, th,
       (uint32_t*)req1, (uint32_t*)req0);
   return (int)cudaGetLastError();
 }

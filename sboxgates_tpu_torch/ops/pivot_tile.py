@@ -1,21 +1,25 @@
 """Pivot 5-LUT tile: packed cell constraints of one (low x high) tile.
 
 Replaces the TPU kernels ``sboxgates_tpu/ops/pallas_pivot.py:133``
-(``pivot_constraints_pallas``, packed operands: K1) and ``:218``
-(``pivot_constraints_pallas_pre``, operands pre-expanded to int8 lanes: K2)
-with ``csrc/pivot_tile.cu``.  The pivot sweep runs K1 as
-:func:`pivot_window`: many tiles per launch, each with its validity,
-conflict test and feasible count fused into the kernel; the single-tile
-:func:`pivot_constraints` is no longer launched by any search path.
+(``pivot_constraints_pallas``, packed operands: K1) with
+``csrc/pivot_tile.cu`` and ``:218`` (``pivot_constraints_pallas_pre``,
+operands pre-expanded to int8 lanes: K2) with ``csrc/pivot_pre.cu``.  The
+pivot sweep runs either as a window of tiles per launch, each tile's
+validity, conflict test and feasible count fused into the kernel:
+:func:`pivot_window` (K1, ``--pivot-backend packed``) or
+:func:`pivot_pre_window` (K2, ``pre``).  The single-tile
+:func:`pivot_constraints` and :func:`pivot_constraints_pre` are launched by
+no search path.
 
 For low row l, high row h and cell (s, j, c2), bit ``(j << 3) | (s << 2) |
 c2`` of ``req[l, h]`` is set when the low pair's cell j (pre-intersected
 with the required positions), the pivot polarity s and the high pair's
-cell c2 share a position.  The TPU kernels count those intersections with
-int8 matrix products and test ``> 0``; the CUDA kernel evaluates the same
-predicate as an AND-OR chain on the integer pipe, with no count matrix.
-Bound on the H100: integer logic operations (about 580 per candidate
-against 8 B of output); see the source's header for the design.
+cell c2 share a position.  K2 counts those intersections with int8 matrix
+products on the tensor cores and tests ``> 0``, as the TPU kernels do;
+K1 evaluates the same predicate as an AND-OR chain on the integer pipe,
+with no count matrix.  Bounds on the H100: K2 by int8 tensor-core
+operations, K1 by 32-bit logic operations (about 580 per candidate against
+8 B of output); see the sources' headers for the designs.
 
 Words are int32 bit patterns.  On a CUDA tensor the wrappers launch the
 kernel or raise; the plain versions run only for CPU tensors (and in the
@@ -31,13 +35,14 @@ from .. import _kernels
 
 #: Kernel launches: ``"packed"`` by :func:`pivot_window` (K1 as the sweep
 #: runs it, one launch per window of tiles), ``"pre"`` by
-#: :func:`pivot_constraints_pre` (K2, one per tile) and ``"tile"`` by the
-#: single-tile :func:`pivot_constraints`.
-launches = {"packed": 0, "pre": 0, "tile": 0}
+#: :func:`pivot_pre_window` (K2 as the sweep runs it), and ``"tile"`` /
+#: ``"pre_tile"`` by the single-tile :func:`pivot_constraints` /
+#: :func:`pivot_constraints_pre`.
+launches = {"packed": 0, "pre": 0, "tile": 0, "pre_tile": 0}
 
-#: Tiles swept by those launches (a window of n tiles adds n to
-#: ``"packed"``, each K2 launch 1 to ``"pre"``), and tiles of either that
-#: the pivot sweep handed to its decomposition solve (``"solved"``).
+#: Tiles swept by the window launches (a window of n tiles adds n to its
+#: backend's count), and tiles of either that the pivot sweep handed to its
+#: decomposition solve (``"solved"``).
 tiles = {"packed": 0, "pre": 0, "solved": 0}
 
 # Packed-cell bit position for (pivot polarity s, low cell j, high cell c2):
@@ -49,9 +54,10 @@ PIVOT_CELLBITS = (
     | np.arange(4)[None, None, :]
 ).astype(np.uint32)
 
-#: Low rows per plain-version step (bounds the [2, 4, rows, 4, th, 8]
-#: intermediate).
+#: Low rows per plain-version step: K1's bounds its [2, 4, rows, 4, th, 8]
+#: intermediate, K2's its [2, 4, rows, 4, th] counts.
 _PLAIN_ROWS = 16
+_PLAIN_PRE_ROWS = 64
 
 
 def _tile_plain(lw1, lw0, hw):
@@ -78,14 +84,6 @@ def _tile_plain(lw1, lw0, hw):
     return outs[0], outs[1]
 
 
-def pack_lanes(x: torch.Tensor) -> torch.Tensor:
-    """[..., 256] int8 lanes -> [..., 8] int32 words (lane b of word w is
-    bit b; a lane counts when it is nonzero)."""
-    bits = (x != 0).reshape(x.shape[:-1] + (8, 32)).to(torch.int32)
-    sh = torch.arange(32, dtype=torch.int32, device=x.device)
-    return (bits << sh).sum(dim=-1, dtype=torch.int32)
-
-
 def expand_lanes(x: torch.Tensor) -> torch.Tensor:
     """[..., W] int32 words -> [..., W*32] int8 0/1 lanes, LSB first (the
     arithmetic shift sign-extends bit 31, and ``& 1`` keeps only the lane)."""
@@ -104,9 +102,30 @@ def pivot_constraints_plain(l1, l0, hcs, pmw):
 
 
 def pivot_constraints_pre_plain(lhs1, lhs0, rhsb):
-    """Plain version of K2: ``lhs1``/``lhs0`` int8[2, 4, tl, 256]
-    polarity-masked low lanes, ``rhsb`` int8[4, th, 256] high lanes."""
-    return _tile_plain(pack_lanes(lhs1), pack_lanes(lhs0), pack_lanes(rhsb))
+    """Plain version of K2, by its arithmetic: ``lhs1``/``lhs0``
+    int8[2, 4, tl, 256] polarity-masked low lanes, ``rhsb`` int8[4, th, 256]
+    high lanes; each count ``sum_k lhs[s, j, l, k] * rhsb[c2, h, k]`` (a
+    float32 matrix product, exact: at most 256 products of 0/1) becomes its
+    cell bit when > 0."""
+    tl, th = lhs1.shape[2], rhsb.shape[1]
+    sh = torch.as_tensor(
+        PIVOT_CELLBITS.astype(np.int32), device=rhsb.device
+    )[:, :, None, :, None]                                  # [2, 4, 1, 4, 1]
+    rhs = rhsb.reshape(4 * th, 256).to(torch.float32).T     # [256, 4 th]
+    outs = []
+    for lhs in (lhs1, lhs0):
+        rows = []
+        for r in range(0, tl, _PLAIN_PRE_ROWS):
+            a = lhs[:, :, r : r + _PLAIN_PRE_ROWS].to(torch.float32)
+            c = (a.reshape(-1, 256) @ rhs).reshape(2, 4, a.shape[2], 4, th)
+            rows.append(
+                ((c > 0).to(torch.int32) << sh).sum(dim=(0, 1, 3), dtype=torch.int32)
+            )
+        outs.append(
+            torch.cat(rows, dim=0) if rows
+            else torch.zeros((0, th), dtype=torch.int32, device=rhsb.device)
+        )
+    return outs[0], outs[1]
 
 
 def _check_words(name, t, shape_tail, device):
@@ -153,10 +172,11 @@ def pivot_constraints(l1, l0, hcs, pmw):
 
 
 def pivot_constraints_pre(lhs1, lhs0, rhsb):
-    """K2: (req1, req0) int32[tl, th] for one tile from int8 lane operands
+    """K2 on one tile: (req1, req0) int32[tl, th] from int8 lane operands
     (0/1 lanes): ``lhs1``/``lhs0`` int8[2, 4, tl, 256], ``rhsb``
     int8[4, th, 256].  Bit-identical to the JAX package's
-    ``pivot_constraints_pallas_pre``."""
+    ``pivot_constraints_pallas_pre``; the sweep runs
+    :func:`pivot_pre_window`."""
     dev = lhs1.device
     tl, th = lhs1.shape[2], rhsb.shape[1]
     for name, t, shape in (
@@ -179,15 +199,15 @@ def pivot_constraints_pre(lhs1, lhs0, rhsb):
         req1.data_ptr(), req0.data_ptr(), _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "pivot_constraints_pre")
-    launches["pre"] += 1
-    tiles["pre"] += 1
+    launches["pre_tile"] += 1
     return req1, req0
 
 
-def pivot_window_plain(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
-                       t0, n, t_end, tl, th, out=None):
-    """Plain version of the window kernel: see :func:`pivot_window`."""
-    dev = lc1.device
+def _window_plain(tile_words, lowvalid, highvalid, descs, t0, n, t_end, tl,
+                  th, out, dev):
+    """The window kernels' plain body: ``tile_words(m, lo0, hi0)`` gives one
+    tile's (req1, req0); validity, the conflict test and the counts follow
+    the kernels' contract (:func:`pivot_window`)."""
     if out is None:
         out = window_buffers(n, tl, th, dev)
     req1, req0, feas = (b[:n] for b in out)
@@ -201,17 +221,39 @@ def pivot_window_plain(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
         if t >= t_end:
             continue
         m, lo0, lo_end, hi0, hi_end = (int(x) for x in descs[t].tolist())
-        pm = tables[m]
-        r1, r0 = pivot_constraints_plain(
-            lc1[:, lo0 : lo0 + tl], lc0[:, lo0 : lo0 + tl],
-            hc[:, hi0 : hi0 + th], torch.stack([~pm, pm]),
-        )
+        r1, r0 = tile_words(m, lo0, hi0)
         lv = (lo0 + rows_l < lo_end) & lowvalid[lo0 : lo0 + tl]
         hv = (hi0 + rows_h < hi_end) & highvalid[hi0 : hi0 + th]
         req1[z], req0[z] = r1, r0
         feas[z] = lv[:, None] & hv[None, :] & ((r1 & r0) == 0)
     counts = feas.reshape(n, -1).sum(dim=1, dtype=torch.int32)
     return req1, req0, feas, counts
+
+
+def pivot_window_plain(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
+                       t0, n, t_end, tl, th, out=None):
+    """Plain version of the window kernel: see :func:`pivot_window`."""
+
+    def tile_words(m, lo0, hi0):
+        pm = tables[m]
+        return pivot_constraints_plain(
+            lc1[:, lo0 : lo0 + tl], lc0[:, lo0 : lo0 + tl],
+            hc[:, hi0 : hi0 + th], torch.stack([~pm, pm]),
+        )
+
+    return _window_plain(tile_words, lowvalid, highvalid, descs, t0, n, t_end,
+                         tl, th, out, lc1.device)
+
+
+def _check_window(lowvalid, highvalid, descs, t0, t_end, dev):
+    for name, t in (("lowvalid", lowvalid), ("highvalid", highvalid)):
+        if t.dtype != torch.bool or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bool vector on {dev}")
+    if (descs.dtype != torch.int32 or descs.device != dev
+            or not descs.is_contiguous() or descs.shape[-1] != 5):
+        raise ValueError("descs must be a contiguous int32[*, 5] on the tiles' device")
+    if t0 < 0 or t_end > descs.shape[0]:
+        raise ValueError("the window's descriptors are out of range")
 
 
 def window_buffers(n, tl, th, device):
@@ -245,14 +287,7 @@ def pivot_window(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n,
             raise ValueError(f"{name} must hold 8-word rows")
     if lc1.shape != lc0.shape or lc1.shape[0] != 4 or hc.shape[0] != 4:
         raise ValueError("lc1/lc0/hc must be [4, rows, 8]")
-    for name, t in (("lowvalid", lowvalid), ("highvalid", highvalid)):
-        if t.dtype != torch.bool or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous bool vector on {dev}")
-    if (descs.dtype != torch.int32 or descs.device != dev
-            or not descs.is_contiguous() or descs.shape[-1] != 5):
-        raise ValueError("descs must be a contiguous int32[*, 5] on the tiles' device")
-    if t0 < 0 or t_end > descs.shape[0]:
-        raise ValueError("the window's descriptors are out of range")
+    _check_window(lowvalid, highvalid, descs, t0, t_end, dev)
     if out is None:
         out = window_buffers(n, tl, th, dev)
     req1, req0, feas = (b[:n] for b in out)
@@ -274,4 +309,68 @@ def pivot_window(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n,
     _kernels.check(err, "pivot_window")
     launches["packed"] += 1
     tiles["packed"] += n
+    return req1, req0, feas, counts
+
+
+def pivot_pre_window_plain(tables, l1, l0, hc, lowvalid, highvalid, descs,
+                           t0, n, t_end, tl, th, out=None):
+    """Plain version of K2's window: see :func:`pivot_pre_window`.  Each
+    tile's lanes are sliced and the pivot polarity folded into the low ones
+    as the JAX package's ``_pivot_tile_expanded_operands`` does, then
+    counted by :func:`pivot_constraints_pre_plain`."""
+
+    def tile_words(m, lo0, hi0):
+        pmb = expand_lanes(tables[m])
+        pmsel = torch.stack([1 - pmb, pmb])[:, None, None, :]     # [2, 1, 1, 256]
+        return pivot_constraints_pre_plain(
+            l1[None, :, lo0 : lo0 + tl] * pmsel, l0[None, :, lo0 : lo0 + tl] * pmsel,
+            hc[:, hi0 : hi0 + th],
+        )
+
+    return _window_plain(tile_words, lowvalid, highvalid, descs, t0, n, t_end,
+                         tl, th, out, l1.device)
+
+
+def pivot_pre_window(tables, l1, l0, hc, lowvalid, highvalid, descs, t0, n,
+                     t_end, tl, th, out=None):
+    """K2 over a window of tiles ``[t0, t0 + n)`` of ``descs``, one launch:
+    :func:`pivot_window`'s contract and results, from the pair cells
+    expanded to int8 0/1 lanes once per node: ``l1``/``l0``/``hc``
+    int8[4, P, 256] (:func:`expand_lanes` of :class:`PivotOperands`'
+    words).  The pivot polarity comes from ``tables[m]`` in the kernel."""
+    dev = l1.device
+    for name, t in (("l1", l1), ("l0", l0), ("hc", hc)):
+        if t.dtype != torch.int8 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int8 lanes on {dev}")
+        if t.dim() != 3 or t.shape[0] != 4 or t.shape[-1] != 256:
+            raise ValueError(f"{name} must be [4, rows, 256]")
+        if t.is_cuda and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if l1.shape != l0.shape or l1.shape != hc.shape:
+        raise ValueError("l1/l0/hc must share their shape")
+    if (tables.dtype != torch.int32 or tables.device != dev
+            or not tables.is_contiguous() or tables.shape[-1] != 8):
+        raise ValueError(f"tables must be contiguous int32[*, 8] on {dev}")
+    _check_window(lowvalid, highvalid, descs, t0, t_end, dev)
+    if out is None:
+        out = window_buffers(n, tl, th, dev)
+    req1, req0, feas = (b[:n] for b in out)
+    if req1.shape != (n, tl, th) or feas.dtype != torch.bool:
+        raise ValueError("window buffers do not fit the window")
+    if not l1.is_cuda:
+        return pivot_pre_window_plain(
+            tables, l1, l0, hc, lowvalid, highvalid, descs, t0, n, t_end, tl,
+            th, out=out,
+        )
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _kernels.lib().sbgt_pivot_pre_window(
+        tables.data_ptr(), l1.data_ptr(), l0.data_ptr(), hc.data_ptr(),
+        l1.shape[1], lowvalid.data_ptr(), highvalid.data_ptr(),
+        descs.data_ptr(), t0, n, t_end, tl, th, req1.data_ptr(),
+        req0.data_ptr(), feas.data_ptr(), counts.data_ptr(),
+        _kernels.stream_ptr(dev),
+    )
+    _kernels.check(err, "pivot_pre_window")
+    launches["pre"] += 1
+    tiles["pre"] += n
     return req1, req0, feas, counts

@@ -12,8 +12,12 @@ and deterministic; they order the sweeps and never prune them.
 
 The gate-score stage is the hand-written kernel K5
 (``csrc/walsh_score.cu``), which replaces the TPU kernel
-``sboxgates_tpu/ops/spectral.py:119`` (``_gate_scores_pallas``).  Words
-travel as int32 bit patterns.  On a CUDA tensor :func:`gate_scores_kernel`
+``sboxgates_tpu/ops/spectral.py:119`` (``_gate_scores_pallas``).  The
+transform is symmetric, so K5 and its plain version transform the spectrum
+once instead of every gate: ``dot(wht(x), s) == dot(x, wht(s))``, exactly
+modulo 2^32, and with ``x`` the ±1 lanes of a gate that is the sum of
+``wht(s)`` less twice its sum over the gate's set bits.  Words travel as
+int32 bit patterns.  On a CUDA tensor :func:`gate_scores_kernel`
 launches the kernel or raises; the plain version :func:`gate_scores_plain`
 serves CPU tensors and the comparisons of the tests and ``chip_smoke.py``.
 """
@@ -37,13 +41,19 @@ launches = 0
 _I32 = torch.int32
 
 
-def unpack_signs(words: torch.Tensor) -> torch.Tensor:
-    """int32[..., W] words -> int32[..., W*32] ±1 lanes: lane ``w*32 + j``
-    is ``1 - 2*bit(words[..., w], j)``."""
+def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """int32[..., W] words -> int32[..., W*32] 0/1 lanes: lane ``w*32 + j``
+    is bit ``j`` of ``words[..., w]``."""
     w = words.shape[-1]
     sh = torch.arange(32, dtype=_I32, device=words.device)
     bits = (words[..., :, None] >> sh) & 1                  # [..., W, 32]
-    return 1 - 2 * bits.reshape(words.shape[:-1] + (w * 32,))
+    return bits.reshape(words.shape[:-1] + (w * 32,))
+
+
+def unpack_signs(words: torch.Tensor) -> torch.Tensor:
+    """int32[..., W] words -> int32[..., W*32] ±1 lanes: lane ``w*32 + j``
+    is ``1 - 2*bit(words[..., w], j)``."""
+    return 1 - 2 * _unpack_bits(words)
 
 
 def wht(x: torch.Tensor) -> torch.Tensor:
@@ -73,12 +83,15 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 
 
 def gate_scores_plain(tables: torch.Tensor, spectrum: torch.Tensor) -> torch.Tensor:
-    """Plain version of K5: int32[B, 8] tables, int32[256] spectrum ->
-    int32[B] ``|sum(wht(signs) * spectrum) // 256|``.  The products and the
-    sum wrap modulo 2^32 as the JAX int32 arithmetic does, and the division
-    floors (the kernel must agree on any spectrum, not only real ones)."""
-    xg = wht(unpack_signs(tables)).long()                    # [B, 256]
-    corr = _wrap32((xg * spectrum.long()[None, :]).sum(dim=-1))
+    """Plain version of K5, by its arithmetic: int32[B, 8] tables,
+    int32[256] spectrum -> int32[B] ``|sum(wht(signs) * spectrum) // 256|``
+    as ``S' = wht(spectrum)`` once and, per gate, ``sum(S') - 2 * sum(S'
+    over the set bits)``.  The sum wraps modulo 2^32 as the JAX int32
+    arithmetic does, and the division floors (the kernel must agree on any
+    spectrum, not only real ones)."""
+    sp = wht(spectrum.long())                                # exact in int64
+    masked = torch.where(_unpack_bits(tables).bool(), sp, 0).sum(dim=-1)
+    corr = _wrap32(sp.sum() - 2 * masked)
     return torch.abs(torch.div(corr, 256, rounding_mode="floor")).to(_I32)
 
 
@@ -94,6 +107,8 @@ def _check(tables, spectrum):
         raise ValueError(f"tables must be [B, 8], got {tuple(tables.shape)}")
     if tuple(spectrum.shape) != (256,):
         raise ValueError(f"spectrum must be [256], got {tuple(spectrum.shape)}")
+    if tables.is_cuda and tables.data_ptr() % 16:
+        raise ValueError("gate_scores_kernel: tables must be 16-byte aligned")
 
 
 def gate_scores_kernel(tables: torch.Tensor, spectrum: torch.Tensor) -> torch.Tensor:

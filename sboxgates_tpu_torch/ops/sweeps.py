@@ -40,13 +40,7 @@ import torch
 from ..core import ttable as tt
 from . import combinatorics, pivot_tile, spectral
 from .lut5_filter import cell_requirements, lut5_filter_cells, pack_bits
-from .pivot_tile import (
-    PIVOT_CELLBITS,
-    expand_lanes,
-    pivot_constraints_pre,
-    pivot_window,
-    window_buffers,
-)
+from .pivot_tile import PIVOT_CELLBITS, pivot_pre_window, pivot_window, window_buffers
 
 M32 = 0xFFFFFFFF
 _I32 = torch.int32
@@ -632,38 +626,16 @@ def pivot_pair_cells(tables, lowgrid, highgrid, target, mask):
 
 _PIVOT_CELLBITS = PIVOT_CELLBITS
 
-PIVOT_BACKENDS = ("packed", "pre")
+#: The pivot sweep's window kernel of each ``--pivot-backend``.
+PIVOT_WINDOWS = {"packed": pivot_window, "pre": pivot_pre_window}
+PIVOT_BACKENDS = tuple(PIVOT_WINDOWS)
 
-#: Most tiles in one window of the pivot sweep on the packed backend.  The
+#: Most tiles in one window of the pivot sweep.  The
 #: windows start at one tile and double up to this cap, so a hit in the
 #: first tiles costs what one tile costs, and a long sweep runs full
 #: windows (buffers: 64 x 2 MB of req words and 64 x 256 KB of feasible
 #: flags at 512 x 512 tiles).
 PIVOT_WINDOW_TILES = 64
-
-
-def _pivot_tile_valid(lowvalid, highvalid, d, tl, th):
-    """The tile's validity mask (boundary + exclusion rows)."""
-    _, lo0, lo_end, hi0, hi_end = (int(x) for x in d)
-    dev = lowvalid.device
-    lv = ((lo0 + torch.arange(tl, device=dev)) < lo_end) & lowvalid[lo0 : lo0 + tl]
-    hv = ((hi0 + torch.arange(th, device=dev)) < hi_end) & highvalid[hi0 : hi0 + th]
-    return lv[:, None] & hv[None, :]
-
-
-def _pivot_tile_pre(tables, lc1, lc0, hc, lowvalid, highvalid, d, tl, th):
-    """(feasible [tl*th], req1, req0 [tl, th]) of one tile through K2 (the
-    ``"pre"`` backend), its int8 lanes expanded here."""
-    m, lo0, hi0 = int(d[0]), int(d[1]), int(d[3])
-    pmb = expand_lanes(tables[m])
-    pmsel = torch.stack([1 - pmb, pmb])                 # [2, 256]
-    l1m = (expand_lanes(lc1[:, lo0 : lo0 + tl])[None] * pmsel[:, None, None, :]).contiguous()
-    l0m = (expand_lanes(lc0[:, lo0 : lo0 + tl])[None] * pmsel[:, None, None, :]).contiguous()
-    req1, req0 = pivot_constraints_pre(
-        l1m, l0m, expand_lanes(hc[:, hi0 : hi0 + th]).contiguous()
-    )
-    valid = _pivot_tile_valid(lowvalid, highvalid, d, tl, th)
-    return (valid & ((req1 & req0) == 0)).reshape(-1), req1, req0
 
 
 def _desc_rows(descs, lo, hi, device):
@@ -674,17 +646,12 @@ def _desc_rows(descs, lo, hi, device):
 def lut5_pivot_tile(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t, *, tl, th,
                     backend="packed"):
     """Feasibility + packed constraints of ONE tile (the overflow
-    re-drive): (feasible [tl*th], req1, req0) — on the packed backend a
-    window of one tile."""
-    if backend == "pre":
-        feas, req1, req0 = _pivot_tile_pre(
-            tables, lc1, lc0, hc, lowvalid, highvalid, descs[t], tl, th
-        )
-    else:
-        req1, req0, feas, _ = pivot_window(
-            tables, lc1, lc0, hc, lowvalid, highvalid,
-            _desc_rows(descs, t, t + 1, lc1.device), 0, 1, 1, tl, th,
-        )
+    re-drive): (feasible [tl*th], req1, req0) — a window of one tile on
+    the backend's kernel."""
+    req1, req0, feas, _ = PIVOT_WINDOWS[backend](
+        tables, lc1, lc0, hc, lowvalid, highvalid,
+        _desc_rows(descs, t, t + 1, lc1.device), 0, 1, 1, tl, th,
+    )
     return feas.reshape(-1), req1.reshape(-1), req0.reshape(-1)
 
 
@@ -711,18 +678,6 @@ def _pivot_tile_solve(feasible, req1, req0, d, w_tab, m_tab, seed_t, th, solve_r
         status, int(d[0]), int(d[1]) + flat // th, int(d[3]) + flat % th,
         sel // 256, sel % 256, r1b, r0b,
     )
-
-
-def _pre_feasible_tiles(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
-                        t, t_end, tl, th):
-    """(tile, feasible, req1, req0) of every tile of [t, t_end) with a
-    feasible candidate, in order: one K2 launch and one sync per tile."""
-    for tt in range(t, t_end):
-        feas, req1, req0 = _pivot_tile_pre(
-            tables, lc1, lc0, hc, lowvalid, highvalid, descs[tt], tl, th
-        )
-        if bool(feas.any()):
-            yield tt, feas, req1, req0
 
 
 def pivot_window_schedule(t, t_end):
@@ -756,12 +711,13 @@ def _counts_reader(counts):
     return read
 
 
-def _window_feasible_tiles(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
-                           t, t_end, tl, th):
+def _window_feasible_tiles(window, tables, lc1, lc0, hc, lowvalid, highvalid,
+                           descs, t, t_end, tl, th):
     """(tile, feasible, req1, req0) of every tile of [t, t_end) with a
     feasible candidate, in order, from the windows of
-    :func:`pivot_window_schedule`: each one launch of K1 and one copy of its
-    counts to the host.  Each window is launched before the previous one's
+    :func:`pivot_window_schedule`: each one launch of ``window`` (the
+    backend's kernel, :data:`PIVOT_WINDOWS`) and one copy of its counts to
+    the host.  Each window is launched before the previous one's
     counts are read (two buffer sets), so the card does not wait for the
     host between windows.  The tiles of a window past the one the caller
     stops at, and the window after it, are swept and dropped."""
@@ -773,7 +729,7 @@ def _window_feasible_tiles(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
             for _ in range(2)]
     pending = None
     for i, (w0, n) in enumerate(pivot_window_schedule(t, t_end)):
-        req1, req0, feas, counts = pivot_window(
+        req1, req0, feas, counts = window(
             tables, lc1, lc0, hc, lowvalid, highvalid, ddescs, w0 - t, n,
             t_end - t, tl, th, out=bufs[i % 2],
         )
@@ -802,18 +758,20 @@ def lut5_pivot_stream(
     next_tile] — status as in :func:`lut5_stream` (the tile concerned is
     next_tile - 1); when the range is exhausted, fields 1-7 are the solve
     of its last tile (zeros when that tile had no feasible candidate).
-    ``backend`` picks the tile kernel: ``"packed"`` (K1, in windows of up
-    to :data:`PIVOT_WINDOW_TILES` tiles) or ``"pre"`` (K2, one tile at a
-    time); the tiles are solved in order, each with seed ``seed ^ tile``,
-    so the verdict is the same for every backend and window cap."""
+    ``backend`` picks the window kernel: ``"packed"`` (K1, with ``lc1``,
+    ``lc0`` and ``hc`` the int32 words [4, P, 8]) or ``"pre"`` (K2, with
+    them int8 lanes [4, P, 256]): :class:`PivotOperands` built for the
+    backend gives both.  Either sweeps windows of up to
+    :data:`PIVOT_WINDOW_TILES` tiles; the tiles are solved in order, each
+    with seed ``seed ^ tile``, so the verdict is the same for every backend
+    and window cap."""
     if backend not in PIVOT_BACKENDS:
         raise ValueError(f"unknown pivot backend {backend!r}")
     seed = _wrap32(seed)
     start_t, t_end = int(start_t), int(t_end)
-    args = (tables, lc1, lc0, hc, lowvalid, highvalid, descs, start_t, t_end, tl, th)
-    tiles = (
-        _pre_feasible_tiles(*args) if backend == "pre"
-        else _window_feasible_tiles(*args)
+    tiles = _window_feasible_tiles(
+        PIVOT_WINDOWS[backend], tables, lc1, lc0, hc, lowvalid, highvalid,
+        descs, start_t, t_end, tl, th,
     )
     rest = (0,) * 7
     for t, feasible, req1, req0 in tiles:

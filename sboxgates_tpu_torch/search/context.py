@@ -85,7 +85,7 @@ class Options:
     # "cpu" runs their plain versions and must be asked for.
     device: str = "cuda"
     # Pivot tile kernel: "packed" (K1, packed cell words) or "pre" (K2,
-    # int8 lanes expanded before the launch).  Identical results.
+    # int8 lanes expanded once per node, tensor cores).  Identical results.
     pivot_backend: str = "packed"
     # Candidate sweep order (--candidate-order, ops/spectral.py): "lex"
     # sweeps rank chunks (and pivot tiles) in order; "spectral" sweeps their

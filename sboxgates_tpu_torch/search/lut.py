@@ -21,7 +21,7 @@ import torch
 
 from ..graph.state import NO_GATE, State, check_num_gates_possible
 from ..ops import combinatorics as comb
-from ..ops import spectral, sweeps
+from ..ops import pivot_tile, spectral, sweeps
 from .context import (
     LUT5_CHUNK,
     LUT5_SOLVE_CHUNK,
@@ -166,9 +166,11 @@ class PivotOperands:
     """Host + device operands of the pivot 5-LUT sweep: pair grids, tile
     descriptors (host), validity masks and per-pair cell masks (device).
     The pair arrays are padded by one tile so every tile slice is in
-    range; padded rows are invalid."""
+    range; padded rows are invalid.  For the ``"pre"`` backend the cell
+    masks are also expanded to int8 lanes (``lanes``), once."""
 
-    def __init__(self, g, tl, th, excl, tables, target, mask, device):
+    def __init__(self, g, tl, th, excl, tables, target, mask, device,
+                 backend="packed"):
         self.g, self.tl, self.th = g, tl, th
         lows, highs, _ = sweeps.pivot_pair_grids(g)
         descs = sweeps.pivot_tile_descs(g, tl, th, excl)
@@ -199,13 +201,18 @@ class PivotOperands:
         )
         self.jlv = put(lowvalid)
         self.jhv = put(highvalid)
+        self.lanes = None
+        if backend == "pre":
+            self.lanes = tuple(
+                pivot_tile.expand_lanes(x) for x in (self.lc1, self.lc0, self.hc)
+            )
 
     def stream_args(self):
-        """Positional operands of lut5_pivot_stream / lut5_pivot_tile."""
-        return (
-            self.tables, self.lc1, self.lc0, self.hc, self.jlv, self.jhv,
-            self.descs,
-        )
+        """Positional operands of lut5_pivot_stream / lut5_pivot_tile for
+        the backend the operands were built for: the cells as words, or as
+        lanes for ``"pre"``."""
+        cells = self.lanes or (self.lc1, self.lc0, self.hc)
+        return (self.tables, *cells, self.jlv, self.jhv, self.descs)
 
 
 def _lut5_search_pivot(
@@ -216,8 +223,10 @@ def _lut5_search_pivot(
     g = st.num_gates
     tl, th = pivot_tile_shape(g)
     excl = [b for b in inbits if b >= 0]
+    backend = ctx.opt.pivot_backend
     ops = PivotOperands(
-        g, tl, th, excl, ctx.device_tables(st), target, mask, ctx.device
+        g, tl, th, excl, ctx.device_tables(st), target, mask, ctx.device,
+        backend=backend,
     )
     t_real = ops.t_real
     if t_real == 0:
@@ -227,7 +236,6 @@ def _lut5_search_pivot(
     args = ops.stream_args()
     splits, w_tab, m_tab = sweeps.lut5_split_tables()
     jw, jm = ctx.lut5_tabs()
-    backend = ctx.opt.pivot_backend
 
     def combo_at(m: int, lo_abs: int, hi_abs: int) -> np.ndarray:
         return np.array(

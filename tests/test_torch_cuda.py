@@ -91,7 +91,7 @@ def test_cuda_pivot_kernels_match_plain(tl, th):
         assert torch.equal(a, w)
 
 
-def _planted_pivot(device, excl=()):
+def _planted_pivot(device, excl=(), backend="packed"):
     """Pivot operands of the planted G = 50 state of tests/planted.py,
     built with the port (8 inputs, XOR gates, the 5-LUT 0xB4(0x2D(g12,
     g26, g41), g19, g33) as the target), on ``device``."""
@@ -109,26 +109,31 @@ def _planted_pivot(device, excl=()):
     tabs = np.zeros((64, 8), np.uint32)
     tabs[:50] = st.live_tables()
     return PivotOperands(50, 256, 512, list(excl), sweeps.as_words(tabs, device),
-                         target, tt.mask_table(8), device)
+                         target, tt.mask_table(8), device, backend=backend)
+
+
+WINDOWS = {"packed": ("pivot_window", "pivot_window_plain"),
+           "pre": ("pivot_pre_window", "pivot_pre_window_plain")}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("backend", sorted(WINDOWS))
 @pytest.mark.parametrize("t0,n,t_end", [(18, 1, 112), (0, 64, 112), (60, 64, 100)])
-def test_cuda_pivot_window_matches_plain(t0, n, t_end):
-    """The window kernel against its plain version on the same card
-    inputs: req words, feasible flags and counts, for one tile, a full
-    window and a window crossing t_end (tiles past it are all-ones and
-    infeasible)."""
+def test_cuda_pivot_window_matches_plain(t0, n, t_end, backend):
+    """The window kernel of each backend (K1 on words, K2 on int8 lanes)
+    against its plain version on the same card inputs: req words, feasible
+    flags and counts, for one tile, a full window and a window crossing
+    t_end (tiles past it are all-ones and infeasible)."""
     dev = _cuda()
-    ops = _planted_pivot(dev, excl=(5,))
-    args = (ops.tables, ops.lc1, ops.lc0, ops.hc, ops.jlv, ops.jhv,
-            torch.from_numpy(ops.descs).to(dev), t0, n, min(t_end, ops.t_real),
-            256, 512)
+    ops = _planted_pivot(dev, excl=(5,), backend=backend)
+    args = (*ops.stream_args()[:6], torch.from_numpy(ops.descs).to(dev), t0, n,
+            min(t_end, ops.t_real), 256, 512)
+    kern, plain = (getattr(pivot_tile, f) for f in WINDOWS[backend])
     before = dict(pivot_tile.launches), dict(pivot_tile.tiles)
-    got = pivot_tile.pivot_window(*args)
-    assert pivot_tile.launches["packed"] == before[0]["packed"] + 1
-    assert pivot_tile.tiles["packed"] == before[1]["packed"] + n
-    want = pivot_tile.pivot_window_plain(*args)
+    got = kern(*args)
+    assert pivot_tile.launches[backend] == before[0][backend] + 1
+    assert pivot_tile.tiles[backend] == before[1][backend] + n
+    want = plain(*args)
     for a, w in zip(got, want):
         assert torch.equal(a, w)
     if t0 <= 18 < t0 + n:
@@ -136,24 +141,26 @@ def test_cuda_pivot_window_matches_plain(t0, n, t_end):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("backend", sorted(WINDOWS))
 @pytest.mark.parametrize("cap", [1, 64])
 @pytest.mark.parametrize("solve_rows", [64, 1])
-def test_cuda_pivot_stream_matches_cpu(cap, solve_rows, monkeypatch):
+def test_cuda_pivot_stream_matches_cpu(cap, solve_rows, backend, monkeypatch):
     """The windowed stream on the card gives the CPU's verdict (a hit, or
-    an overflow with solve_rows=1), and launches one window per window."""
+    an overflow with solve_rows=1) on either backend, and launches one
+    window per window."""
     dev = _cuda()
     monkeypatch.setattr(sweeps, "PIVOT_WINDOW_TILES", cap)
     _, w_tab, m_tab = sweeps.lut5_split_tables()
     out = []
     for d in (torch.device("cpu"), dev):
-        ops = _planted_pivot(d)
-        before = pivot_tile.launches["packed"]
+        ops = _planted_pivot(d, backend=backend)
+        before = pivot_tile.launches[backend]
         out.append(sweeps.lut5_pivot_stream(
             *ops.stream_args(), 0, ops.t_real, sweeps.as_words(w_tab, d),
             sweeps.as_words(m_tab, d), 2024, tl=256, th=512,
-            solve_rows=solve_rows,
+            solve_rows=solve_rows, backend=backend,
         ))
-    assert pivot_tile.launches["packed"] > before
+    assert pivot_tile.launches[backend] > before
     np.testing.assert_array_equal(out[0], out[1])
     assert out[1][0] == (1 if solve_rows == 64 else 2)
 
@@ -179,11 +186,13 @@ def test_cuda_streams_match_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [64, 512, 1000])
-@pytest.mark.parametrize("spectrum", ["target", "random"])
+@pytest.mark.parametrize("b", [64, 512, 1000, 300000])
+@pytest.mark.parametrize("spectrum", ["target", "random", "extreme"])
 def test_cuda_walsh_score_matches_plain(b, spectrum):
-    """K5 against its plain version; a random int32 spectrum exercises the
-    wrapping products and the floor division of negative sums."""
+    """K5 against its plain version; a random int32 spectrum, and an
+    extreme one of entries +-(2^31 - 1), exercise the wrapping sums and the
+    floor division of negative sums; B = 300000 makes every block of the
+    grid stride over several gates."""
     from sboxgates_tpu_torch.ops import spectral
 
     dev = _cuda()
@@ -191,9 +200,12 @@ def test_cuda_walsh_score_matches_plain(b, spectrum):
     tables = _t(_words(rng, b, 8)).to(dev)
     if spectrum == "target":
         spec = spectral.target_spectrum(_t(_words(rng, 8)).to(dev), _t(_words(rng, 8)).to(dev))
-    else:
+    elif spectrum == "random":
         spec = torch.from_numpy(
             rng.integers(-2**31, 2**31, size=256).astype(np.int32)).to(dev)
+    else:
+        spec = torch.from_numpy(
+            (rng.choice([-1, 1], size=256) * (2**31 - 1)).astype(np.int32)).to(dev)
     before = spectral.launches
     got = spectral.gate_scores_kernel(tables, spec)
     assert spectral.launches == before + 1

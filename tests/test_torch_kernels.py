@@ -180,7 +180,8 @@ def test_expand_and_pack_lanes_round_trip():
     w = _t(_words(rng, 3, 5, 8))
     lanes = pivot_tile.expand_lanes(w)
     assert lanes.dtype == torch.int8 and lanes.shape == (3, 5, 256)
-    assert torch.equal(pivot_tile.pack_lanes(lanes), w)
+    packed = np.packbits(lanes.numpy().astype(np.uint8), axis=-1, bitorder="little")
+    np.testing.assert_array_equal(packed.view(np.int32), w.numpy())
     import jax.numpy as jnp
     from sboxgates_tpu.ops import sweeps as jsw
 

@@ -1,14 +1,17 @@
 """The pivot sweep in windows of tiles against the JAX package's stream.
 
-The port's ``lut5_pivot_stream`` sweeps its tiles in windows of K1 (1, 2, 4,
-... tiles up to a cap, one launch each); the JAX package's sweeps every tile
-of a segment in one device loop, ``tile_batch`` tiles per step.  Both solve
-the tiles with a feasible candidate in tile order, each with seed
-``seed ^ tile``, so the verdict must not depend on the window cap nor on
-``tile_batch``.  On the CPU the window kernel runs its plain version, which
-is also held tile by tile against the JAX package's ``lut5_pivot_tile``.
-Inputs: the planted G = 50 state of tests/planted.py (its 5-LUT lies in tile
-18 of 112 at 256 x 512 tiles).  Tolerance: exact equality.
+The port's ``lut5_pivot_stream`` sweeps its tiles in windows of K1 (packed
+backend) or K2 (pre backend), 1, 2, 4, ... tiles up to a cap, one launch
+each; the JAX package's sweeps every tile of a segment in one device loop,
+``tile_batch`` tiles per step.  Both solve the tiles with a feasible
+candidate in tile order, each with seed ``seed ^ tile``, so the verdict
+must not depend on the backend, the window cap nor ``tile_batch``.  On the
+CPU each window kernel runs its plain version, which is also held tile by
+tile against the JAX package: K1's against ``lut5_pivot_tile``, K2's
+against ``_pivot_tile_expanded_operands`` and ``pivot_constraints_pallas_pre``
+in interpret mode.  Inputs: the planted G = 50 state of tests/planted.py
+(its 5-LUT lies in tile 18 of 112 at 256 x 512 tiles).  Tolerance: exact
+equality.
 """
 
 import os
@@ -48,20 +51,23 @@ def _w(a):
 _OPS = {}
 
 
-def _ops(excl=()):
-    """(JAX, port) pivot operands of the planted G = 50 state."""
-    if excl not in _OPS:
+def _ops(excl=(), backend="packed"):
+    """(JAX, port) pivot operands of the planted G = 50 state, the port's
+    built for ``backend``."""
+    key = (excl, backend)
+    if key not in _OPS:
         st, target, mask = build_planted_lut5()
         g = st.num_gates
         tabs = np.zeros((jctx.bucket_size(g), 8), np.uint32)
         tabs[:g] = st.live_tables()
-        _OPS[excl] = (
+        _OPS[key] = (
             JPivotOperands(g, TL, TH, list(excl), jnp.asarray(tabs), target, mask,
                            jnp.asarray),
-            TPivotOperands(g, TL, TH, list(excl), _w(tabs), target, mask, CPU),
+            TPivotOperands(g, TL, TH, list(excl), _w(tabs), target, mask, CPU,
+                           backend=backend),
             target, mask,
         )
-    return _OPS[excl]
+    return _OPS[key]
 
 
 def _split_tabs():
@@ -77,11 +83,11 @@ def _jax_stream(jops, start, stop, seed, solve_rows, tile_batch):
     ))
 
 
-def _port_stream(tops, start, stop, seed, solve_rows):
+def _port_stream(tops, start, stop, seed, solve_rows, backend):
     w_tab, m_tab = _split_tabs()
     return tsw.lut5_pivot_stream(
         *tops.stream_args(), start, stop, _w(w_tab), _w(m_tab), seed,
-        tl=TL, th=TH, solve_rows=solve_rows,
+        tl=TL, th=TH, solve_rows=solve_rows, backend=backend,
     )
 
 
@@ -144,15 +150,17 @@ def _jax_verdicts(case, tile_batch):
     return _JAX[key]
 
 
+@pytest.mark.parametrize("backend", tsw.PIVOT_BACKENDS)
 @pytest.mark.parametrize("cap", CAPS)
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_windowed_stream_matches_jax(case, cap, monkeypatch):
+def test_windowed_stream_matches_jax(case, cap, backend, monkeypatch):
     monkeypatch.setattr(tsw, "PIVOT_WINDOW_TILES", cap)
     excl, seed, rows, segs = CASES[case]
-    _, tops, target, mask = _ops(excl)
+    _, tops, target, mask = _ops(excl, backend)
     segments = (_spectral_segments(tops, target, mask) if segs is None
                 else segs(tops.t_real))
-    got = _drive(lambda a, b: _port_stream(tops, a, b, seed, rows), segments)
+    got = _drive(lambda a, b: _port_stream(tops, a, b, seed, rows, backend),
+                 segments)
     assert got == _jax_verdicts(case, 1)
     assert _read(got) == _read(_jax_verdicts(case, JAX_BATCH))
 
@@ -220,6 +228,41 @@ def test_window_plain_matches_jax_tiles(n):
         np.testing.assert_array_equal(req0[z].reshape(-1).numpy().view(np.uint32),
                                       np.asarray(j0))
         assert int(counts[z]) == int(np.asarray(jf).sum())
+    assert int(counts.sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_pre_window_plain_matches_jax_pallas_pre(n):
+    """K2's window, plain version: each tile of a window from tile 12 (it
+    holds feasible candidates) to one tile past ``t_end``, with the
+    pivot-5 exclusion, against the JAX package's per-tile
+    ``_pivot_tile_expanded_operands`` and ``pivot_constraints_pallas_pre``
+    in interpret mode (one block per tile), and its validity mask."""
+    from sboxgates_tpu.ops import pallas_pivot
+
+    jops, tops, _, _ = _ops((5,), "pre")
+    t0 = 12
+    t_end = t0 + max(1, n - 1)
+    before = dict(pivot_tile.launches)
+    req1, req0, feas, counts = pivot_tile.pivot_pre_window(
+        *tops.stream_args()[:6], torch.from_numpy(tops.descs), t0, n, t_end, TL, TH,
+    )
+    assert pivot_tile.launches == before  # the CPU path launches nothing
+    for z in range(n):
+        t = t0 + z
+        if t >= t_end:
+            assert not bool(feas[z].any()) and int(counts[z]) == 0
+            assert bool((req1[z] == -1).all()) and bool((req0[z] == -1).all())
+            continue
+        *operands, valid = jsw._pivot_tile_expanded_operands(
+            *jops.stream_args()[:6], jops.descs[t], TL, TH)
+        j1, j0 = pallas_pivot.pivot_constraints_pallas_pre(
+            *operands, tl=TL, th=TH, bl=TL, bh=TH, interpret=True)
+        np.testing.assert_array_equal(req1[z].numpy().view(np.uint32), np.asarray(j1))
+        np.testing.assert_array_equal(req0[z].numpy().view(np.uint32), np.asarray(j0))
+        want = np.asarray(valid) & ((np.asarray(j1) & np.asarray(j0)) == 0)
+        np.testing.assert_array_equal(feas[z].numpy(), want)
+        assert int(counts[z]) == int(want.sum())
     assert int(counts.sum()) > 0
 
 

@@ -24,6 +24,9 @@ from sboxgates_tpu_torch.graph.xmlio import load_state
 from sboxgates_tpu_torch.search import Options, SearchContext
 from sboxgates_tpu_torch.utils.sbox import load_sbox
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_states import planted_sbox, random_state  # noqa: E402
+
 # The suite runs several worker processes on shared cores; torch's
 # intra-op thread pool in each of them oversubscribes the host.
 torch.set_num_threads(1)
@@ -57,20 +60,17 @@ G99_ARGV = ["-l", "-o", "0", "--seed", "1", "-g", G99_STATE, G99_SBOX]
 def _g50_argv(d):
     """A G = 50 resume that reaches the pivot 5-LUT sweep (C(50,5) is just
     past its threshold) and finds a 5-LUT there after about 10 K
-    candidates: chip_smoke.py's random_state(50, 2) against rijndael.txt
-    with output bit 0 planted on gates 45..49.  Writes both inputs to
+    candidates: random_state(50, 2) against rijndael.txt with output bit 0
+    planted on gates 45..49 (tests/torch_states.py).  Writes both inputs to
     ``d``."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
     from sboxgates_tpu_torch.graph.xmlio import state_to_xml
     from sboxgates_tpu_torch.resilience.checkpoint import with_digest
 
-    st = chip_smoke.random_state(50, 2)
+    st = random_state(50, 2)
     state, box = os.path.join(d, "g50_state.xml"), os.path.join(d, "g50_box.txt")
     with open(state, "w") as f:
         f.write(with_digest(state_to_xml(st)))
-    sbox = chip_smoke.planted_sbox(st, gates=(45, 46, 47, 48, 49))
+    sbox = planted_sbox(st, gates=(45, 46, 47, 48, 49))
     with open(box, "w") as f:
         f.write(" ".join("%02x" % v for v in sbox) + "\n")
     return ["-l", "-o", "0", "--seed", "1", "-g", state, box]
@@ -186,12 +186,12 @@ def test_pivot_backend_flag_writes_the_jax_clis_file(backend, jax_runs, tmp_path
     assert rcs["g50_pivot"] == 0
     calls = {"packed": 0, "pre": 0}
     for name, attr in (("packed", "pivot_constraints_plain"),
-                       ("pre", "pivot_constraints_pre_plain")):
+                       ("pre", "pivot_pre_window_plain")):
         real = getattr(pivot_tile, attr)
 
-        def counted(*a, _real=real, _name=name):
+        def counted(*a, _real=real, _name=name, **kw):
             calls[_name] += 1
-            return _real(*a)
+            return _real(*a, **kw)
 
         monkeypatch.setattr(pivot_tile, attr, counted)
     rc = cli.main(cases["g50_pivot"] + [
@@ -208,18 +208,16 @@ def test_pivot_backend_flag_writes_the_jax_clis_file(backend, jax_runs, tmp_path
 
 
 def test_pivot_resume_inputs_come_from_chip_smokes_generators():
-    """The committed G = 99 state and planted S-box are chip_smoke.py's
-    seeded random_state(99, 11) and planted_sbox, as the port saves them."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
+    """The committed G = 99 state and planted S-box are the seeded
+    random_state(99, 11) and planted_sbox (tests/torch_states.py, the
+    constructions chip_smoke.py keeps a copy of), as the port saves them."""
     from sboxgates_tpu_torch.graph.xmlio import state_to_xml
     from sboxgates_tpu_torch.resilience.checkpoint import with_digest
 
-    st = chip_smoke.random_state(99, 11)
+    st = random_state(99, 11)
     with open(G99_STATE) as f:
         assert f.read() == with_digest(state_to_xml(st))
-    sbox = chip_smoke.planted_sbox(st)
+    sbox = planted_sbox(st)
     with open(G99_SBOX) as f:
         assert f.read() == " ".join("%02x" % v for v in sbox) + "\n"
     target = tt.target_table(sbox, 0)

@@ -80,18 +80,22 @@ def test_unpack_wht_and_target_spectrum_match(seed):
 
 
 @pytest.mark.parametrize("b", [64, 512])
-@pytest.mark.parametrize("spectrum", ["target", "random"])
+@pytest.mark.parametrize("spectrum", ["target", "random", "extreme"])
 def test_gate_scores_plain_matches_xla_and_pallas(b, spectrum):
-    """K5's plain version equals ``_gate_scores_xla`` and the Pallas kernel
-    (interpret mode) word for word; a random int32 spectrum exercises the
-    wrapping products and the floor division."""
+    """K5's plain version (one transform of the spectrum, then a masked sum
+    per gate) equals ``_gate_scores_xla`` and the Pallas kernel (interpret
+    mode) word for word; a random int32 spectrum, and an extreme one of
+    entries +-(2^31 - 1), exercise the wrapping sums and the floor division
+    of negative sums."""
     rng = np.random.default_rng(b)
     tables = _words(rng, b, 8)
     if spectrum == "target":
         spec = np.array(jspec.target_spectrum(
             jnp.asarray(_words(rng, 8)), jnp.asarray(_words(rng, 8))))
-    else:
+    elif spectrum == "random":
         spec = rng.integers(-2**31, 2**31, size=256, dtype=np.int64).astype(np.int32)
+    else:
+        spec = (rng.choice([-1, 1], size=256) * (2**31 - 1)).astype(np.int32)
     xla = np.asarray(jspec._gate_scores_xla(jnp.asarray(tables), jnp.asarray(spec)))
     pal = np.asarray(jspec._gate_scores_pallas(
         jnp.asarray(tables), jnp.asarray(spec), interpret=True))
@@ -105,6 +109,15 @@ def test_gate_scores_plain_matches_xla_and_pallas(b, spectrum):
     assert tspec.launches == before  # a CPU tensor runs the plain version
     if spectrum == "random":
         assert (xla > 256).any()
+    if spectrum != "target":
+        # The exact correlations leave int32 (the sums wrap), and some
+        # wrapped ones are negative and not multiples of 256 (the division
+        # floors).
+        x = np.asarray(jspec.wht(jspec.unpack_signs(jnp.asarray(tables)))).astype(np.int64)
+        exact = x @ spec.astype(np.int64)
+        wrapped = (exact + 2**31) % 2**32 - 2**31
+        assert (np.abs(exact) >= 2**31).any()
+        assert ((wrapped < 0) & (wrapped % 256 != 0)).any()
 
 
 def test_gate_scores_match_jax():

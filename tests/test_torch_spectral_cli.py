@@ -149,20 +149,21 @@ def test_options_reject_an_unknown_order():
 
 
 def test_g22_inputs_come_from_chip_smokes_generators():
-    """The committed G = 22 state and planted S-box are chip_smoke.py's
-    planted7_state and planted7_sbox, as the port saves them, and output
-    bit 0 is the planted 7-LUT."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
+    """The committed G = 22 state and planted S-box are planted7_state and
+    planted7_sbox (tests/torch_states.py, the constructions chip_smoke.py
+    keeps a copy of), as the port saves them, and output bit 0 is the
+    planted 7-LUT."""
     from sboxgates_tpu_torch.core import ttable as tt
     from sboxgates_tpu_torch.graph.xmlio import state_to_xml
     from sboxgates_tpu_torch.resilience.checkpoint import with_digest
 
-    st = chip_smoke.planted7_state()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_states import planted7_sbox, planted7_state
+
+    st = planted7_state()
     with open(G22_STATE) as f:
         assert f.read() == with_digest(state_to_xml(st))
-    sbox = chip_smoke.planted7_sbox(st)
+    sbox = planted7_sbox(st)
     with open(G22_SBOX) as f:
         assert f.read() == " ".join("%02x" % v for v in sbox) + "\n"
     outer = tt.eval_lut(0x96, st.table(9), st.table(12), st.table(17))

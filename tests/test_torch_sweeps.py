@@ -442,13 +442,14 @@ def test_lut7_step_stream_matches(seed):
 # -- the pivot sweep -------------------------------------------------------
 
 
-def _pivot_ops(tl, th, excl=()):
+def _pivot_ops(tl, th, excl=(), backend="packed"):
     st, target, mask = build_planted_lut5()
     g = st.num_gates
     b = jctx.bucket_size(g)
     tabs = padded(st, b)
     jops = JPivotOperands(g, tl, th, list(excl), jnp.asarray(tabs), target, mask, jnp.asarray)
-    tops = TPivotOperands(g, tl, th, list(excl), T(tabs), target, mask, CPU)
+    tops = TPivotOperands(g, tl, th, list(excl), T(tabs), target, mask, CPU,
+                          backend=backend)
     return jops, tops
 
 
@@ -467,7 +468,7 @@ def test_pivot_pair_cells_match():
 def test_lut5_pivot_stream_matches(seed, backend):
     """The planted G = 50 state, just past the pivot threshold."""
     tl, th = 256, 512
-    jops, tops = _pivot_ops(tl, th)
+    jops, tops = _pivot_ops(tl, th, backend=backend)
     _, w_tab, m_tab = jsw.lut5_split_tables()
     want = np.asarray(jsw.lut5_pivot_stream(
         *jops.stream_args(), 0, jops.t_real, jnp.asarray(w_tab),
