@@ -7,7 +7,10 @@ directory that holds nothing else of the repository) it exits non-zero and
 prints no result.  Phases, each of which raises on failure:
 
 1. build — compiles every kernel under sboxgates_tpu_torch/csrc with nvcc
-   (one process per source, in parallel) and prints the build seconds;
+   (one process per source, in parallel) and, at the same time, the native
+   host runtime (csrc/runtime.cpp, with the host's C++ compiler) into
+   build/torch_native/, and prints the build seconds; fails if either does
+   not build or load;
 2. parity — each kernel against its plain PyTorch version on the card, on
    seeded inputs at the shapes the search gives it: the 5-LUT filter (K3)
    at N = 2^17 candidates over 64- and 512-row tables, with a full mask,
@@ -26,7 +29,9 @@ prints no result.  Phases, each of which raises on failure:
    (a ragged edge).  Requires 0 differing words and times each version
    (CUDA events), K4 at W = 2^22 and K5 also at the large B;
 3. main path — ``python -m sboxgates_tpu_torch -l -o 0 --seed 1
-   sboxes/des_s1.txt`` in process: every output gate is checked against the
+   sboxes/des_s1.txt`` in process on the device route (``SBG_DISABLE_NATIVE``
+   set, as for every run of phases 3, 4a and 5: their golden files are the
+   JAX CLI's with its native runtime off): every output gate is checked against the
    S-box, and the XML bytes against the file the JAX package wrote for the
    same command (tests/data/torch_golden/des_s1_l_o0_seed1.xml); after
    phase 6, a torch.profiler window around a second run of the same
@@ -60,13 +65,27 @@ prints no result.  Phases, each of which raises on failure:
 6. codegen — ``eval_sbox`` on the card (K4) for every examples/*.xml and
    every state file the CLI runs wrote, against the S-box bits, then the
    CLI's ``-c`` and ``-d`` on a LUT and a gate circuit against the JAX
-   CLI's text (tests/data/torch_golden/*.cu, *.c, *.dot).
+   CLI's text (tests/data/torch_golden/*.cu, *.c, *.dot);
+7. gate mode and the native route (files under
+   tests/data/torch_golden/gate/, each the JAX CLI's for the same command
+   and route):
+   a. ``-o 0 --seed 1 sboxes/des_s1.txt`` on the device route: wall, nodes,
+      gate_step dispatches, then the first 300 nodes of a second run under
+      the profiler (device operations and host syncs per node, busy share);
+   b. the same command on the native route (the default): wall, engine
+      nodes, and a profiled second run that must launch no CUDA kernel;
+   c. ``-l -o 0 --seed 1 sboxes/des_s1.txt`` on the default route, its wall
+      beside phase 3's;
+   d. phase 4a's G = 99 resume without ``-v`` on the default route: the LUT
+      engine's one device-work request runs K1's 8 windows over 191 tiles;
+   e. one gate_step on the device and on the host at G = 64, 200 and 500.
 
-The CLI runs (phases 3, 4a, 5) and phase 6 are the main path.  Every launch
+The CLI runs (phases 3, 4a, 5, 7a-7d) and phase 6 are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
 kernel and K2's on the G = 99 resume with their backend, K5 on the
-spectral G = 99 resume, K4 on codegen), K5 never on a lexicographic path
+spectral G = 99 resume, K4 on codegen, K1's window kernel through the
+engine's service in 7d), none of K1-K5 in gate mode, K5 never on a lexicographic path
 nor on DES S1 spectral, the single-tile K1 and K2 on no path, and K1–K3
 (launches and tiles) as often on the lexicographic paths as LEX_LAUNCHES
 records.  Phases 4b and 4c call the
@@ -248,13 +267,36 @@ def mixed_state(g: int = 200, seed: int = 5):
 
 
 def phase_build() -> float:
-    from sboxgates_tpu_torch import _kernels
+    """The CUDA kernels (nvcc) and, at the same time on another thread, the
+    native host runtime (csrc/runtime.cpp, the host's C++ compiler); fails
+    if either does not build or load."""
+    import threading
 
-    _kernels.build(force=True)
+    from sboxgates_tpu_torch import _kernels, native
+
+    host = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+            host["ok"] = native.available()
+        finally:
+            host["seconds"] = time.perf_counter() - t
+
+    th = threading.Thread(target=build_native)
+    th.start()
+    try:
+        _kernels.build(force=True)
+    finally:
+        th.join()
+    if not host.get("ok"):
+        raise AssertionError(f"native host runtime: {native.build_error()}")
     info = dict(_kernels.build_info)
     _kernels.lib()
     log(f"phase 1 build: {info['seconds']:.2f} s "
-        f"({len(_kernels.sources())} sources, sm_90a)")
+        f"({len(_kernels.sources())} sources, sm_90a); native host runtime "
+        f"{host['seconds']:.2f} s ({native.lib_path()})")
     for line in info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
@@ -609,30 +651,84 @@ def parity_circuit(dev) -> dict:
     return r
 
 
-def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str):
-    """``python -m sboxgates_tpu_torch <argv> -v -v --output-dir <dir>`` in
-    process, on ``dev``: one state file; every output gate in it is
-    checked against the S-box ``box``, and its bytes against ``golden``
-    (the file the JAX CLI writes for the same command).  Returns the state
-    file's path and the run's ``stats:`` counters."""
+@contextlib.contextmanager
+def native_route(on: bool):
+    """The port's CLI reads ``SBG_DISABLE_NATIVE`` on every call: unset, every
+    node runs on the native host runtime (the default route); set, every
+    node runs on the device sweeps (the route of the native-off golden
+    files)."""
+    old = os.environ.pop("SBG_DISABLE_NATIVE", None)
+    if not on:
+        os.environ["SBG_DISABLE_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("SBG_DISABLE_NATIVE", None)
+        if old is not None:
+            os.environ["SBG_DISABLE_NATIVE"] = old
+
+
+class NodeLimit(Exception):
+    """Ends a profiled run after its first nodes (``counting_calls``)."""
+
+
+@contextlib.contextmanager
+def counting_calls(cls, method: str, limit=None):
+    """Counts the calls of ``cls.method`` (and records the instances of
+    ``cls`` created) while the block runs: yields a dict with ``calls`` and
+    ``instances``.  With ``limit``, the call after the first ``limit``
+    raises NodeLimit."""
+    seen = {"calls": 0, "instances": []}
+    real, real_init = getattr(cls, method), cls.__init__
+
+    def wrapped(self, *a, **kw):
+        if limit is not None and seen["calls"] >= limit:
+            raise NodeLimit
+        seen["calls"] += 1
+        return real(self, *a, **kw)
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        seen["instances"].append(self)
+
+    setattr(cls, method, wrapped)
+    cls.__init__ = init
+    try:
+        yield seen
+    finally:
+        setattr(cls, method, real)
+        cls.__init__ = real_init
+
+
+def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
+            native: bool = False, verbose: bool = True):
+    """``python -m sboxgates_tpu_torch <argv> [-v -v] --output-dir <dir>`` in
+    process, on ``dev``, on the native route or (``native=False``) the
+    device route: one state file; every output gate in it is checked
+    against the S-box ``box``, and its bytes against ``golden`` (the file
+    the JAX CLI writes for the same command and route).  Returns the state
+    file's path, the run's counters (its search context's stats, the
+    ``-v -v`` line's) with ``gate_step`` calls added, and its wall
+    seconds."""
     from sboxgates_tpu_torch import cli
     from sboxgates_tpu_torch.core import ttable as tt
     from sboxgates_tpu_torch.graph.xmlio import load_state
+    from sboxgates_tpu_torch.search.context import SearchContext
     from sboxgates_tpu_torch.utils.sbox import load_sbox
 
     d = os.path.join(outdir, label.split()[-1])
     os.makedirs(d)
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main([*argv, "-v", "-v", "--device", dev.type, "--output-dir", d, box])
+    with contextlib.redirect_stdout(buf), native_route(native), \
+            counting_calls(SearchContext, "gate_step") as seen:
+        rc = cli.main([*argv, *(["-v", "-v"] if verbose else []),
+                       "--device", dev.type, "--output-dir", d, box])
     wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"{label} exited {rc}")
-    stats = {}
-    for line in buf.getvalue().splitlines():
-        if line.startswith("stats: "):
-            stats = {k: int(v) for k, v in (kv.split("=") for kv in line[7:].split())}
+    stats = {k: int(v) for k, v in seen["instances"][-1].stats.items()}
+    stats["gate_step_calls"] = seen["calls"]
     names = sorted(n for n in os.listdir(d) if n.endswith(".xml"))
     if len(names) != 1:
         raise AssertionError(f"{label}: expected one state file, found {names}")
@@ -645,12 +741,13 @@ def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str):
             raise AssertionError(f"{label}: output {bit} gate {gid} misses the S-box")
     with open(path, "rb") as f, open(golden, "rb") as g:
         same = f.read() == g.read()
-    log(f"{label}: {names[0]} in {wall:.2f} s, "
+    log(f"{label}: {names[0]} in {wall:.2f} s "
+        f"({'native' if native else 'device'} route), "
         f"{st.num_gates - st.num_inputs} gates, outputs verified, XML "
         f"{'byte-identical to' if same else 'DIFFERS from'} the golden file")
     if not same:
         raise AssertionError(f"{label}: XML differs from {golden}")
-    return path, stats
+    return path, stats, wall
 
 
 DES_ARGV = ["-l", "-o", "0", "--seed", "1"]
@@ -742,7 +839,8 @@ def phase_spectral(dev, name: str, outdir: str):
     least one stream (``order_tier_dispatches`` > 0) where SPECTRAL_RUNS
     says they must, none where it says they cannot."""
     argv, box, golden, ordered = SPECTRAL_RUNS[name]
-    path, stats = run_cli(dev, f"phase 5 spectral {name}", argv, box, golden, outdir)
+    path, stats, wall = run_cli(dev, f"phase 5 spectral {name}", argv, box, golden,
+                                outdir)
     log(f"  {name} stats: order_tier_dispatches="
         f"{stats.get('order_tier_dispatches', 0)} order_first_hit_tier="
         f"{stats.get('order_first_hit_tier', 0)} lut5_candidates="
@@ -752,7 +850,7 @@ def phase_spectral(dev, name: str, outdir: str):
         raise AssertionError(f"{name}: ordered dispatches "
                              f"{stats.get('order_tier_dispatches', 0)}, expected "
                              f"{'some' if ordered else 'none'}")
-    return path, stats
+    return path, stats, wall
 
 
 def phase_codegen(dev, written) -> None:
@@ -988,27 +1086,36 @@ def device_summary(events, label: str, wall_us: float, top: int = 8):
     return busy, nops
 
 
-def phase_profile_des(dev, outdir: str) -> None:
-    """torch.profiler window around a second DES S1 CLI run (phase 3's
-    command; not a counted path): the device's busy share, the host's
-    synchronising CUDA calls (counted as the warnings of
+def profile_cli(dev, outdir: str, label: str, argv, box: str, native: bool,
+                max_nodes=None):
+    """torch.profiler window around one CLI run (not a counted path), or
+    around its first ``max_nodes`` gate-mode node heads: the device's busy
+    share, the host's synchronising CUDA calls (counted as the warnings of
     ``torch.cuda.set_sync_debug_mode("warn")``) and the top eight device
-    operations."""
+    operations.  Returns (busy us, device operations, device operations
+    that are kernels, syncs, wall us, node heads run)."""
     import warnings
 
     import torch
 
     from sboxgates_tpu_torch import cli
+    from sboxgates_tpu_torch.search.context import SearchContext
 
-    d = os.path.join(outdir, "des_s1_profile")
+    d = os.path.join(outdir, label.split()[-1] + "_profile")
     os.makedirs(d)
+    seen = {}
 
     def run():
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            with contextlib.redirect_stdout(io.StringIO()):
-                return cli.main([*DES_ARGV, "--device", dev.type, "--output-dir", d,
-                                 DES_BOX])
+            with contextlib.redirect_stdout(io.StringIO()), native_route(native), \
+                    counting_calls(SearchContext, "gate_step", max_nodes) as calls:
+                seen.update(calls=calls)
+                try:
+                    return cli.main([*argv, "--device", dev.type, "--output-dir", d,
+                                     box])
+                except NodeLimit:
+                    return 0
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
@@ -1017,11 +1124,179 @@ def phase_profile_des(dev, outdir: str) -> None:
         events, wall_us, rc = profiled(
             run, lambda: torch.ones(1 << 20, device=dev).cumsum(0))
     if rc != 0:
-        raise AssertionError(f"profiled DES S1 run exited {rc}")
+        raise AssertionError(f"profiled {label} run exited {rc}")
     syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
-    device_summary(events, "phase 3b profile des_s1", wall_us)
+    busy, nops = device_summary(events, label, wall_us)
+    kernels = device_kernels(events)
     log(f"  {syncs} synchronising CUDA calls on the host, "
-        f"{wall_us / 1e3 / max(syncs, 1):.4f} ms of wall per sync")
+        f"{wall_us / 1e3 / max(syncs, 1):.4f} ms of wall per sync; "
+        f"{kernels} of the device operations are kernels")
+    return busy, nops, kernels, syncs, wall_us, seen["calls"]["calls"]
+
+
+def device_kernels(events) -> int:
+    """Kernels in a profiler window: device operations other than copies,
+    fills and the profiler's step span."""
+    from torch.autograd import DeviceType
+
+    return sum(
+        e.count for e in events
+        if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+        and not e.key.startswith(("ProfilerStep", "Memcpy", "Memset"))
+    )
+
+
+def phase_profile_des(dev, outdir: str) -> None:
+    """Phase 3b: a profiled second DES S1 run of phase 3's command on the
+    device route."""
+    profile_cli(dev, outdir, "phase 3b profile des_s1", DES_ARGV, DES_BOX,
+                native=False)
+
+
+GATE_GOLDEN = os.path.join(GOLDEN, "gate")
+GATE_ARGV = ["-o", "0", "--seed", "1"]
+PROFILED_NODES = 300
+
+
+def phase_gate_device(dev, outdir: str):
+    """Phase 7a: gate mode on the device route, ``SBG_DISABLE_NATIVE=1
+    -o 0 --seed 1 sboxes/des_s1.txt``: the JAX CLI's native-off file;
+    wall, nodes and gate_step dispatches, then a profiled second run
+    (device operations, host syncs per node, busy share)."""
+    path, stats, wall = run_cli(
+        dev, "phase 7a gate mode device route gate_off", GATE_ARGV, DES_BOX,
+        os.path.join(GATE_GOLDEN, "des_off", "1-021-0197-0-7d4eef05.xml"),
+        outdir, native=False)
+    nodes = stats.get("python_nodes", 0)
+    if stats["gate_step_calls"] != nodes or nodes == 0:
+        raise AssertionError(f"7a: {stats['gate_step_calls']} gate_step calls over "
+                             f"{nodes} nodes")
+    log(f"  7a: wall {wall:.3f} s, {nodes} nodes, {stats['gate_step_calls']} "
+        f"gate_step dispatches, {wall / nodes * 1e3:.3f} ms per node; "
+        f"pair_candidates={stats.get('pair_candidates', 0)} "
+        f"triple_candidates={stats.get('triple_candidates', 0)}")
+    # The whole second run holds millions of device operations, more than a
+    # trace can take in the time limit: the profile covers its first
+    # PROFILED_NODES node heads.
+    busy, nops, kernels, syncs, wall_us, heads = profile_cli(
+        dev, outdir, "phase 7a profile gate_off", GATE_ARGV, DES_BOX, native=False,
+        max_nodes=PROFILED_NODES)
+    log(f"  7a profile over the first {heads} nodes of a second run: {nops} device "
+        f"operations ({nops / heads:.1f} per node), {syncs / heads:.2f} host syncs "
+        f"per node, {wall_us / 1e3 / heads:.3f} ms of profiled wall per node, busy "
+        f"{100 * busy / wall_us:.1f}% of {wall_us / 1e6:.3f} s")
+    return path, stats, wall
+
+
+def phase_gate_native(dev, outdir: str):
+    """Phase 7b: the same command on the native route (the default): the
+    JAX CLI's default file; wall and engine nodes, then a profiled second
+    run that must launch no CUDA kernel."""
+    path, stats, wall = run_cli(
+        dev, "phase 7b gate mode native route gate_native", GATE_ARGV, DES_BOX,
+        os.path.join(GATE_GOLDEN, "des_native", "1-020-0185-0-8a96f192.xml"),
+        outdir, native=True)
+    if stats.get("python_nodes", 0) or not stats.get("engine_nodes", 0):
+        raise AssertionError(f"7b: not run by the native engine: {stats}")
+    log(f"  7b: wall {wall:.3f} s, {stats['engine_nodes']} engine nodes")
+    kernels = profile_cli(
+        dev, outdir, "phase 7b profile gate_native", GATE_ARGV, DES_BOX,
+        native=True)[2]
+    if kernels:
+        raise AssertionError(f"7b: the native route launched {kernels} kernels")
+    return path, stats, wall
+
+
+def phase_lut_native(dev, outdir: str, device_wall: float):
+    """Phase 7c: ``-l -o 0 --seed 1 sboxes/des_s1.txt`` on the default
+    route: the JAX CLI's default file, its wall beside phase 3's (the
+    device route's)."""
+    path, stats, wall = run_cli(
+        dev, "phase 7c LUT mode default route des_l_native", DES_ARGV, DES_BOX,
+        os.path.join(GATE_GOLDEN, "des_l_native", "1-011-0000-0-fa23f056.xml"),
+        outdir, native=True, verbose=False)
+    log(f"  7c: wall {wall:.3f} s on the native route against {device_wall:.3f} s "
+        f"on the device route (phase 3); engine nodes "
+        f"{stats.get('engine_nodes', 0)}, engine device-work requests "
+        f"{stats.get('engine_devcalls', 0)}")
+    return path, stats, wall
+
+
+def phase_engine_service(dev, outdir: str):
+    """Phase 7d: the G = 99 resume of phase 4a without ``-v`` on the default
+    route: the LUT engine hands the pivot-sized node to the device service
+    once (K1's windows), and the file is the golden one."""
+    path, stats, wall = run_cli(
+        dev, "phase 7d engine continuation g99_native", G99_ARGV, G99_BOX,
+        os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml"), outdir,
+        native=True, verbose=False)
+    if stats.get("engine_devcalls") != 1 or stats.get("python_nodes", 0):
+        raise AssertionError(f"7d: expected one engine device-work request: {stats}")
+    if stats.get("lut5_candidates") != G99_CANDIDATES:
+        raise AssertionError(f"7d: {stats.get('lut5_candidates')} 5-LUT candidates")
+    log(f"  7d: wall {wall:.3f} s, engine_devcalls 1, {G99_CANDIDATES} candidates")
+    return path, stats, wall
+
+
+def rand_gate_state(rng, num_inputs: int, extra: int):
+    """A random gate state (the construction of tests/test_native.py): AND,
+    OR and XOR gates and, one time in four, a NOT."""
+    from sboxgates_tpu_torch.core import boolfunc as bf
+    from sboxgates_tpu_torch.graph.state import GATES, State
+
+    st = State.init_inputs(num_inputs)
+    while st.num_gates < num_inputs + extra:
+        a, b = rng.choice(st.num_gates, size=2, replace=False)
+        if rng.integers(0, 4) == 0:
+            st.add_not_gate(int(a), GATES)
+        else:
+            st.add_gate(int(rng.choice([bf.AND, bf.OR, bf.XOR])), int(a), int(b),
+                        GATES)
+    return st
+
+
+def phase_gate_placement(dev) -> dict:
+    """Phase 7e: gate_step on the device and on the host at G = 64, 200 and
+    500 (8-input random gate states, a random target: a miss, so the
+    triple stream covers C(G, 3)); the same step verdict on both.  Each
+    route takes one warm-up step at each G, then the median of 5.  Figures
+    only: the placement sends every node to the host on the native route,
+    and results do not depend on the route."""
+    import numpy as np
+    import torch
+
+    from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.search import Options, SearchContext
+
+    rng = np.random.default_rng(230)
+    mask = tt.mask_table(8)
+    out = {}
+
+    def median_ms(ctx, st, target):
+        ctx.gate_step(st, target, mask)  # warm-up
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = ctx.gate_step(st, target, mask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[2], v
+
+    for g in (64, 200, 500):
+        st = rand_gate_state(rng, 8, g - 8)
+        target = rng.integers(0, 2**32, size=8, dtype=np.uint64).astype(np.uint32)
+        dctx = SearchContext(Options(seed=1, device=dev.type, native=False))
+        hctx = SearchContext(Options(seed=1, device=dev.type, native=True))
+        dev_ms, vd = median_ms(dctx, st, target)
+        host_ms, vh = median_ms(hctx, st, target)
+        if vd[0] != vh[0]:
+            raise AssertionError(f"7e G={g}: device step {vd} != host step {vh}")
+        out[g] = {"device_ms": dev_ms, "host_ms": host_ms, "step": int(vd[0])}
+        log(f"phase 7e gate_step G={g} (step {vd[0]}, C(G,3) = {math.comb(g, 3)} "
+            f"triples): device {dev_ms:.3f} ms, host {host_ms:.3f} ms (each the "
+            f"median of 5 after a warm-up), device/host {dev_ms / host_ms:.1f}x")
+    return out
 
 
 def gpu_line() -> str:
@@ -1128,10 +1403,10 @@ def main() -> int:
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        written, stats = [], {}
+        written, stats, walls = [], {}, {}
 
         def cli_path(name, drive, box):
-            path, stats[name] = drive()
+            path, stats[name], walls[name] = drive()
             written.append((path, box))
 
         paths = {
@@ -1175,6 +1450,34 @@ def main() -> int:
     rates = phase_pivot(dev)
     phase_profile_sweep(dev)
 
+    # Phase 7: gate mode on both routes and the default (native) route of
+    # LUT mode, each a counted path; then the gate-step placement figures.
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        paths["gate_off"] = on_path("gate_off", lambda: phase_gate_device(dev, outdir))
+        paths["gate_native"] = on_path(
+            "gate_native", lambda: phase_gate_native(dev, outdir))
+        paths["des_l_native"] = on_path(
+            "des_l_native", lambda: phase_lut_native(dev, outdir, walls["des_s1"]))
+        paths["g99_native"] = on_path(
+            "g99_native", lambda: phase_engine_service(dev, outdir))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    for path in ("gate_off", "gate_native"):
+        if any(v for k, v in paths[path].items()):
+            raise AssertionError(f"gate mode launched a kernel of K1-K5: {paths[path]}")
+    want = {"pivot_window": 8, "pivot_window_tiles": 191, "pivot_pre": 0,
+            "walsh_score": 0, "lut5_filter": 0}
+    got = {k: paths["g99_native"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"7d launched {got}, expected {want} (K1 through the "
+                             "engine's device-work service)")
+    if paths["des_l_native"]["walsh_score"] or paths["des_l_native"]["pivot_window"]:
+        raise AssertionError(f"7c launched {paths['des_l_native']}")
+    log(f"  7c: K3 launched {paths['des_l_native']['lut5_filter']} times on the "
+        f"native route (phase 3, device route: {paths['des_s1']['lut5_filter']})")
+    placement = phase_gate_placement(dev)
+
     kernels = []
     for name, (route, source, replaces, home) in KERNELS.items():
         r = par[name]
@@ -1214,6 +1517,9 @@ def main() -> int:
             f"{r['sweep_pre_cand_per_s']:.6e} cand/s (sweep alone, pre), "
             f"{100 * r['sweep_busy']:.1f}% busy (the sweep alone, profiled), "
             f"{r['windows']} windows, {r['tiles_solved']} of {r['tiles']} tiles solved")
+    for g, r in placement.items():
+        log(f"gate_step G={g}: device {r['device_ms']:.3f} ms, host "
+            f"{r['host_ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({

@@ -1,28 +1,39 @@
-"""Command-line interface of the PyTorch/CUDA port: LUT-mode searches.
+"""Command-line interface of the PyTorch/CUDA port.
 
 Flag-for-flag with the JAX package's CLI (and the reference,
-sboxgates.c:43-73, 895-986) for what the port covers: ``-l`` searches for
-all outputs or one (``-o``), with ``-i -p -a -n -s -v -g``, ``--seed`` and
-``--output-dir``; the same validation failures print the same one-line
-messages.  Searches write ``O-GGG-MMMM-N-FFFFFFFF.xml`` state files, byte
-for byte the files the JAX package writes for the same seed.
+sboxgates.c:43-73, 895-986) for what the port covers: gate-mode searches
+(AND/OR/XOR gates and their NOT-augmented and 3-input forms) and, with
+``-l``, LUT-mode searches, for all outputs or one (``-o``), with ``-i -p -a
+-n -s -v -g``, ``--seed`` and ``--output-dir``; the same validation failures
+print the same one-line messages.  Searches write
+``O-GGG-MMMM-N-FFFFFFFF.xml`` state files, byte for byte the files the JAX
+package writes for the same command and seed.
 
-``--device`` picks where the sweeps run: ``cuda`` (the default) launches the
-hand-written kernels and fails when no card is usable; ``cpu`` must be asked
-for.  ``--pivot-backend`` picks the pivot 5-LUT tile kernel, the
-counterpart of the JAX package's ``SBG_PIVOT_BACKEND``: ``packed`` (the
+Placement follows the JAX package: every search node runs on the native
+host runtime (``csrc/runtime.cpp``, built at first use into
+``build/torch_native/``), the whole recursion in its native engine, and the
+LUT engine sends the nodes that need device work (the pivot 5-LUT sweep,
+head-solver overflows, the staged 7-LUT) to the device.  With
+``SBG_DISABLE_NATIVE`` set (read on every call) every node runs on the
+device instead, as in the JAX package with the same variable: the two
+routes write different files for a randomized search, each the JAX CLI's.
+
+``--device`` picks where the device sweeps run: ``cuda`` (the default)
+launches the hand-written kernels and fails when no card is usable; ``cpu``
+must be asked for.  ``--pivot-backend`` picks the pivot 5-LUT tile kernel,
+the counterpart of the JAX package's ``SBG_PIVOT_BACKEND``: ``packed`` (the
 default) runs it on packed cell words on the integer pipe, ``pre`` on int8
 lanes expanded once per node, on the tensor cores; both sweep windows of
-tiles and give the same files.  ``--candidate-order
-spectral`` sweeps the candidate chunks and pivot tiles in Walsh-score tiers
-best-first (the Walsh-score kernel K5 on the card).  ``-c``/``-d`` convert a
-saved state to C/CUDA source or Graphviz DOT, the JAX package's text.  Gate
-mode (no ``-l``) is rejected with one line: it is not part of the port yet.
+tiles and give the same files.  ``--candidate-order spectral`` sweeps the
+candidate chunks and pivot tiles in Walsh-score tiers best-first (the
+Walsh-score kernel K5 on the card).  ``-c``/``-d`` convert a saved state to
+C/CUDA source or Graphviz DOT, the JAX package's text.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
@@ -36,8 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sboxgates",
         description=(
-            "Generates graphs of 3-bit LUTs that realize a target S-box. "
-            "PyTorch/CUDA port of sboxgates_tpu."
+            "Generates graphs of Boolean gates or 3-bit LUTs that realize a "
+            "target S-box. PyTorch/CUDA port of sboxgates_tpu."
         ),
     )
     p.add_argument("input", nargs="*", help="S-box table file")
@@ -143,10 +154,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             sys.stdout.write(digraph_text(st))
         return 0
 
-    if not args.lut:
+    # The JAX package's switches of the native runtime: SBG_DISABLE_NATIVE
+    # sends every node to the device; its threaded engine mux is not ported
+    # (and matters only where an engine runs).
+    native = not os.environ.get("SBG_DISABLE_NATIVE")
+    mux_threads = os.environ.get("SBG_ENGINE_MUX_THREADS", "1")
+    if native and mux_threads.strip() not in ("", "0", "1"):
         return _err(
-            "Error: gate mode (no -l) is not ported yet; pass -l for a LUT "
-            "search, or use python -m sboxgates_tpu for gate mode."
+            f"Error: SBG_ENGINE_MUX_THREADS={mux_threads} is not supported: "
+            "the port runs the serial native engine (unset it or set it to 1)."
         )
     if args.output_dir is None:
         args.output_dir = "."
@@ -190,6 +206,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         device=args.device,
         pivot_backend=args.pivot_backend,
         candidate_order=args.candidate_order,
+        native=native,
     )
     try:
         ctx = SearchContext(opt)

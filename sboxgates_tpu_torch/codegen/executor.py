@@ -7,6 +7,9 @@
   (:mod:`.cuda_kernel`).
 - :func:`eval_sbox` runs the circuit over all 2^n inputs on ``device`` and
   returns the S-box table it implements — on the card through K4.
+- :func:`execute_native` runs the native runtime's bitslice interpreter
+  (csrc ``sbg_execute_circuit``) on the host: a second, independent
+  evaluator.
 
 Words travel as int32 bit patterns, as everywhere in the port.
 """
@@ -106,3 +109,14 @@ def eval_sbox(st: State, device="cuda") -> np.ndarray:
     for row, b in enumerate(output_bits(st)):
         table |= tt.to_bits(out[row]).astype(np.uint8) << b
     return table[: 1 << n]
+
+
+def execute_native(st: State) -> np.ndarray:
+    """Runs the native interpreter; returns every gate's truth table as
+    uint32[G, 8] (equal to ``st.live_tables()`` for a consistent state)."""
+    from .. import native
+
+    types, in1, in2, in3, funcs = gate_arrays(st)
+    itab = native.tables32_to_64(st.tables[: st.num_inputs])
+    out64 = native.execute_circuit(types, in1, in2, in3, funcs, itab)
+    return np.ascontiguousarray(out64).view(np.uint32).reshape(-1, 8)

@@ -257,6 +257,11 @@ class State:
             return gid1
         return self.add_gate(bf.OR, gid1, gid2, metric)
 
+    def add_xor_gate(self, gid1: int, gid2: int, metric: int) -> int:
+        if gid1 == NO_GATE or gid2 == NO_GATE:
+            return NO_GATE
+        return self.add_gate(bf.XOR, gid1, gid2, metric)
+
     def add_boolfunc_2(self, fun: bf.BoolFunc, gid1: int, gid2: int, metric: int) -> int:
         """Materializes a 2-input BoolFunc, adding NOT gates for its
         polarities (reference: add_boolfunc_2, sboxgates.c:184-204)."""
@@ -273,6 +278,61 @@ class State:
         if fun.not_out:
             gid = self.add_not_gate(gid, metric)
         return gid
+
+    def add_boolfunc_3(
+        self, fun: bf.BoolFunc, gid1: int, gid2: int, gid3: int, metric: int
+    ) -> int:
+        """Materializes a 3-input BoolFunc as fun2(fun1(A,B),C) plus NOTs
+        (reference: add_boolfunc_3, sboxgates.c:206-229)."""
+        assert fun.num_inputs == 3
+        if gid1 == NO_GATE or gid2 == NO_GATE or gid3 == NO_GATE:
+            return NO_GATE
+        if self.num_gates > self.max_gates:
+            return NO_GATE
+        if metric == SAT and self.sat_metric > self.max_sat_metric:
+            return NO_GATE
+        if fun.not_a:
+            gid1 = self.add_not_gate(gid1, metric)
+        if fun.not_b:
+            gid2 = self.add_not_gate(gid2, metric)
+        if fun.not_c:
+            gid3 = self.add_not_gate(gid3, metric)
+        out1 = self.add_gate(fun.fun1, gid1, gid2, metric)
+        out = self.add_gate(fun.fun2, out1, gid3, metric)
+        if fun.not_out:
+            out = self.add_not_gate(out, metric)
+        return out
+
+    def replay_gate(
+        self,
+        gate_type: int,
+        gid1: int,
+        gid2: int,
+        gid3: int = NO_GATE,
+        function: int = 0,
+    ) -> int:
+        """Appends a gate WITHOUT budget checks: the replay of a result the
+        native engines computed, which enforced the budgets during their
+        search.  The mux recursion raises budgets for a while (the OR
+        branch runs under the AND branch's size, sboxgates.c:539-543), so
+        an adopted circuit may exceed the original budgets, as the Python
+        engine's may.  Tables and the SAT metric are recomputed here."""
+        assert gate_type != bf.IN
+        if gate_type == bf.LUT:
+            table = tt.eval_lut(
+                function, self.tables[gid1], self.tables[gid2],
+                self.tables[gid3],
+            )
+            return self._append(
+                Gate(bf.LUT, gid1, gid2, gid3, function=function), table
+            )
+        self.sat_metric += get_sat_metric(gate_type)
+        if gate_type == bf.NOT:
+            table = ~self.tables[gid1]
+            gid2 = NO_GATE
+        else:
+            table = tt.eval_gate2(gate_type, self.tables[gid1], self.tables[gid2])
+        return self._append(Gate(gate_type, gid1, gid2), table)
 
     # -- verification -----------------------------------------------------
 

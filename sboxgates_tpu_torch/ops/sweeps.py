@@ -1,7 +1,7 @@
 """Batched candidate sweeps — the device compute core of the search.
 
-PyTorch counterpart of the JAX package's ``ops/sweeps.py`` for the LUT-mode
-path.  The formulation is the same (see that module's docstring): a tuple of
+PyTorch counterpart of the JAX package's ``ops/sweeps.py`` for the
+LUT-mode and gate-mode paths.  The formulation is the same (see that module's docstring): a tuple of
 k gate tables groups the 256 truth-table positions into 2^k Karnaugh cells,
 and a function of the tuple realizes the target under the mask iff no cell
 mixes required-1 and required-0 positions.  Every tuple reduces to two
@@ -175,6 +175,17 @@ def _tuple_match_core(tables, combos, valid, target, mask, match_table, seed, nu
     prio = torch.where(ok, _priority(ok.shape[0], seed, device=ok.device), 0)
     best = torch.argmax(prio)
     return ok.any().long(), best, slot[best], feasible.sum()
+
+
+def tuple_match_sweep(tables, combos, valid, target, mask, match_table, seed, *, num_cells):
+    """k-tuple sweep against an available-function match table (tables
+    [G, W], combos [N, k], valid [N] bool, match_table [4^num_cells]).
+    Returns int32[4] [found, index, slot, num_feasible] for a
+    priority-selected match."""
+    v = torch.stack(_tuple_match_core(
+        tables, combos, valid, target, mask, match_table, _wrap32(seed), num_cells
+    ))
+    return np.asarray(v.tolist(), np.int32)
 
 
 def match_scan(tables, valid, target, mask, seed):
@@ -367,22 +378,32 @@ def device_rank_limit(g: int, k: int) -> bool:
 
 def _unrank_combos(binom, g, k, ranks):
     """Vectorized lexicographic unranking: ``binom`` int64 [513, 9],
-    ``ranks`` int64 [N] (each < C(g, k)) -> combos int64 [k, N].  A lane
-    whose remaining rank falls inside the C(g-v-1, k-pos-1) block takes v."""
+    ``ranks`` int64 [N] (each < C(g, k)) -> combos int64 [k, N].
+
+    Position p takes the largest value v >= lo (lo one past the previous
+    value) whose preceding blocks fit the remaining rank: the combinations
+    with element p in [lo, v) number C(g-lo, r) - C(g-v, r), r = k - p
+    (the hockey-stick sum of the C(g-u-1, r-1) blocks).  Found by a binary
+    search of ``g.bit_length()`` steps per position, so the device work is
+    k log g steps, not g."""
     n = ranks.shape[0]
     dev = ranks.device
-    pos = torch.zeros(n, dtype=_I64, device=dev)
     rem = ranks.clone()
-    out = torch.zeros((k, n), dtype=_I64, device=dev)
-    lanes = torch.arange(k, dtype=_I64, device=dev)[:, None]
-    for v in range(g):
-        row = binom[max(g - v - 1, 0)]
-        c = row[torch.clamp(k - 1 - pos, 0, 8)]
-        active = pos < k
-        take = active & (rem < c)
-        out = torch.where((lanes == pos[None, :]) & take[None, :], v, out)
-        rem = torch.where(active & ~take, rem - c, rem)
-        pos = pos + take.long()
+    lo = torch.zeros(n, dtype=_I64, device=dev)
+    out = torch.empty((k, n), dtype=_I64, device=dev)
+    for p in range(k):
+        r = k - p
+        col = binom[:, r]
+        below = col[g - lo]                     # C(g-lo, r)
+        a, b = lo, torch.full_like(lo, g - r)   # v always fits at a
+        for _ in range(int(g).bit_length()):
+            mid = (a + b + 1) >> 1
+            fits = below - col[g - mid] <= rem
+            a = torch.where(fits, mid, a)
+            b = torch.where(fits, b, mid - 1)
+        out[p] = a
+        rem = rem - (below - col[g - a])
+        lo = a + 1
     return out
 
 
@@ -395,7 +416,8 @@ def _stream_chunk_constraints(tables, binom, g, k, target, mask, excl, ranks, to
     """Per-chunk work: unrank -> exclusion mask -> cell constraints.
     Returns (feasible [N] bool, req1 packed, req0 packed)."""
     valid = ranks < total
-    combos = _unrank_combos(binom, g, k, torch.clamp(ranks, max=total - 1))
+    ranks = torch.clamp(ranks, max=total - 1)
+    combos = _unrank_combos(binom, g, k, ranks)
     hit_excl = (combos[:, :, None] == excl.long()[None, None, :]).any(dim=2).any(dim=0)
     valid = valid & ~hit_excl
     if k == 5:
@@ -788,6 +810,102 @@ def lut5_pivot_stream(
 # -------------------------------------------------------------------------
 # Fused node heads
 # -------------------------------------------------------------------------
+
+
+def _match_stream_core(
+    tables, binom, g, target, mask, excl, start, total, match_table, seed,
+    k, chunk, num_cells,
+):
+    """Streaming tuple-match sweep: (found, abs_rank, slot, examined).
+    Stops after the first chunk holding a match; on a miss the rank and
+    slot are the last chunk's argmax, as in the JAX package."""
+    dev = tables.device
+    seed = _wrap32(seed)
+    found, nxt, rank, slot = 0, int(start), 0, -1
+    while not found and nxt < total:
+        ranks = _ranks(nxt, chunk, dev)
+        feasible, r1, r0 = _stream_chunk_constraints(
+            tables, binom, g, k, target, mask, excl, ranks, total
+        )
+        # packing is per-cell bitwise, so pack(req1 | req0) == r1 | r0
+        slots = match_table[r1.long() + ((r1 | r0).long() << num_cells)].long()
+        ok = feasible & (slots >= 0)
+        prio = torch.where(ok, _priority(chunk, seed ^ nxt, device=dev), 0)
+        best = torch.argmax(prio)
+        found, best, slot = torch.stack([ok.any().long(), best, slots[best]]).tolist()
+        rank = nxt + best
+        nxt += chunk
+    examined = min(nxt, total) - int(start)
+    return found, rank, slot, examined
+
+
+def match_stream(
+    tables, binom, g, target, mask, excl, start, total, match_table, seed,
+    *, k, chunk, num_cells,
+):
+    """Streaming :func:`tuple_match_sweep` over ranks [start, total), to the
+    first chunk where a valid tuple matches an available function.
+    Returns int32[4] [found, abs_rank, slot, examined]."""
+    return np.asarray(_match_stream_core(
+        tables, binom, g, target, mask, excl, start, total, match_table, seed,
+        k, chunk, num_cells,
+    ), np.int32)
+
+
+def gate_step_stream(
+    tables, valid_g, pair_combos, pair_valid, binom, g, target, mask, excl,
+    total3, pair_table, not_table, triple_table, seed,
+    *, chunk3, has_not, has_triple,
+):
+    """ALL of one gate-mode search node's sweeps (sboxgates.c:301-435) for
+    ONE seed.  Steps 1-2 and the pair and NOT-pair sweeps (at most one
+    512-row bucket of pairs) run together and come back in one small
+    verdict; the triple stream runs only when they all miss.
+
+    Returns int32[4] [step, x0, x1, examined3] with step
+      0 = nothing found; 1 = existing gate (x0 = gate id); 2 = complement
+      (x0 = gate id); 3 = pair x available function (x0 = pair index,
+      x1 = slot); 4 = pair x NOT-augmented function (likewise); 5 = triple
+      x 3-input function (x0 = rank, x1 = slot).
+    On a miss only the step is specified (the JAX kernel's payload is its
+    last chunk's argmax)."""
+    dev = tables.device
+    seed = _wrap32(seed)
+    eq = eq_mask(tables, target, mask) & valid_g
+    neq = eq_mask(~tables, target, mask) & valid_g
+    sprio = _priority(valid_g.shape[0], seed, det_newest=True, device=dev)
+    pf, pi, ps, _ = _tuple_match_core(
+        tables, pair_combos, pair_valid, target, mask, pair_table,
+        seed ^ 0x3D4A, 4,
+    )
+    if has_not:
+        nf, ni, ns, _ = _tuple_match_core(
+            tables, pair_combos, pair_valid, target, mask, not_table,
+            seed ^ 0x11C9, 4,
+        )
+    else:
+        nf = ni = ns = torch.zeros((), dtype=_I64, device=dev)
+    direct, inv, dbest, ibest, pf, pi, ps, nf, ni, ns = torch.stack([
+        eq.any().long(), neq.any().long(),
+        torch.argmax(torch.where(eq, sprio, 0)),
+        torch.argmax(torch.where(neq, sprio, 0)),
+        pf, pi, ps, nf, ni, ns,
+    ]).tolist()
+    if direct or inv:
+        v = (1 if direct else 2, dbest if direct else ibest, 0, 0)
+    elif pf:
+        v = (3, pi, ps, 0)
+    elif nf:
+        v = (4, ni, ns, 0)
+    elif not has_triple:
+        v = (0, 0, 0, 0)
+    else:
+        tf, rank, slot, ex = _match_stream_core(
+            tables, binom, g, target, mask, excl, 0, total3, triple_table,
+            seed ^ 0x7777, 3, chunk3, 8,
+        )
+        v = (5 if tf else 0, rank, slot, ex)
+    return np.asarray(v, np.int32)
 
 
 def lut_step_stream(

@@ -4,7 +4,9 @@ The host side of the engine: it owns the available-function lists
 (reference: the ``options`` struct, sboxgates.h:49-66), the precomputed
 constraint-match tables, the seeded numpy PRNG, the device copies of the
 constant tables, and the per-node drivers that run the sweeps of
-:mod:`sboxgates_tpu_torch.ops.sweeps` on ``Options.device``.
+:mod:`sboxgates_tpu_torch.ops.sweeps` on ``Options.device`` or, by the
+placement policy (``uses_native_step``), the same node heads on the native
+host runtime (:mod:`sboxgates_tpu_torch.native`).
 
 Seeds are drawn exactly as the JAX package draws them (``next_seed``, one
 per sweep dispatch of that package), so a ``--seed`` run builds the same
@@ -92,6 +94,17 @@ class Options:
     # Walsh-score tiers best-first.  Ordering only: an exhaustive sweep
     # visits the same hit set either way.
     candidate_order: str = "lex"
+    # The native host runtime: node heads (steps 1-4, the LUT head, 7-LUT
+    # stage A and B) run on the host instead of the device sweeps (same
+    # verdicts), and the whole create_circuit recursion runs in a native
+    # engine (the gate engine, or the LUT engine with its device-work
+    # service).  The engine draws its randomized choices from its own PRNG
+    # stream, seeded from the context's, so a seed gives other circuits
+    # than the Python recursion (the JAX package's default files, which
+    # the JAX package's host_small_steps and native_engine both select).
+    # Off = every node on the device.  Falls back to the device, with a
+    # warning, when the runtime does not build.
+    native: bool = True
 
 
 @dataclass(frozen=True)
@@ -130,6 +143,34 @@ def _build_pair_table(funs: Sequence[bf.BoolFunc]):
                 entries.append(MatchEntry(f, perm))
                 bytes_.append(eff)
     table = sweeps.build_match_table(bytes_, num_cells=4)
+    return table, entries
+
+
+def _build_triple_table(funs: Sequence[bf.BoolFunc]):
+    """Match table + entries for the 3-input sweep.  Non-commutative operand
+    orders become distinct effective function bytes (in place of the
+    permutation re-evaluations at sboxgates.c:406-432; each function's own
+    commutativity flags decide, as in the JAX package)."""
+    entries: List[MatchEntry] = []
+    bytes_: List[int] = []
+    seen = {}
+    ranked = sorted(range(len(funs)), key=lambda i: funs[i].extra_gates)
+    for i in ranked:
+        f = funs[i]
+        orders = [(0, 1, 2)]
+        if not f.ab_commutative:
+            orders.append((1, 0, 2))
+        if not f.ac_commutative:
+            orders.append((2, 1, 0))
+        if not f.bc_commutative:
+            orders.append((0, 2, 1))
+        for perm in orders:
+            eff = bf.permute_fun3(f.fun, perm)
+            if eff not in seen:
+                seen[eff] = True
+                entries.append(MatchEntry(f, perm))
+                bytes_.append(eff)
+    table = sweeps.build_match_table(bytes_, num_cells=8)
     return table, entries
 
 
@@ -196,10 +237,23 @@ class SearchContext:
             bf.get_not_functions(self.avail_gates) if opt.try_nots else []
         )
         self.avail_3 = bf.get_3_input_function_list(self.avail_gates, opt.try_nots)
+        # Match tables: numpy for the native runtime, int64 on the device.
         self.pair_table_np, self.pair_entries = _build_pair_table(self.avail_gates)
-        self.pair_table = torch.from_numpy(self.pair_table_np.astype(np.int64)).to(
-            self.device
-        )
+        self.pair_table = self._match_table(self.pair_table_np)
+        if self.avail_not:
+            self.not_table_np, self.not_entries = _build_pair_table(self.avail_not)
+            self.not_table = self._match_table(self.not_table_np)
+        else:
+            self.not_table_np, self.not_table, self.not_entries = None, None, []
+        self.triple_table_np, self.triple_entries = _build_triple_table(self.avail_3)
+        self.triple_table = self._match_table(self.triple_table_np)
+        self._native_probe = None
+        self._gate_step_caller = None
+        self._gate_engine_caller = None
+        self._lut_engine_caller = None
+        # (callback, pending) of the LUT engine's device-work service
+        # (kwan._native_lut_engine_search), alive as long as the context.
+        self.lut_engine_devcb = None
         self._seed_buf = (np.empty(0, dtype=np.int64), 0)
         self._pair_combo_cache = {}
         self._table_cache: "OrderedDict" = OrderedDict()
@@ -210,6 +264,9 @@ class SearchContext:
         self.stats = Stats()
 
     # -- helpers ----------------------------------------------------------
+
+    def _match_table(self, table_np: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(table_np.astype(np.int64)).to(self.device)
 
     def next_seed(self) -> int:
         """Per-dispatch kernel seed, drawn from the context PRNG in blocks of
@@ -336,23 +393,183 @@ class SearchContext:
         found, cstart, examined = (int(x) for x in verdict)
         return bool(found), cstart, feas, r1, r0, examined, chunk
 
+    # -- placement --------------------------------------------------------
+
+    def _native_ok(self) -> bool:
+        """Cached probe of the native host runtime.  Warns once when it
+        does not build: every node then pays the device sweeps, which
+        must never happen silently."""
+        if self._native_probe is None:
+            from .. import native
+
+            self._native_probe = native.available()
+            if not self._native_probe and self.opt.native:
+                import warnings
+
+                warnings.warn(
+                    f"native host runtime unavailable ({native.build_error()}); "
+                    "search nodes fall back to the device sweeps",
+                    RuntimeWarning,
+                )
+        return self._native_probe
+
+    def uses_native_step(self, st: State) -> bool:
+        """True when this state's node head runs on the host
+        (:meth:`_gate_step_native`, :meth:`_lut_step_native`,
+        :meth:`_lut7_step_native`): the same verdict as the device
+        sweeps, with no device work.  Every node does with
+        ``Options.native``, as in the JAX package, whose size limit (512
+        gates) lies above MAX_GATES."""
+        return self.opt.native and self._native_ok()
+
+    def node_host_only(self, st: State) -> bool:
+        """True when a search node runs entirely on the host: gate mode,
+        or a LUT node whose 5-LUT space is not pivot-sized."""
+        if not self.uses_native_step(st):
+            return False
+        if not self.opt.lut_graph:
+            return True
+        g = st.num_gates
+        return g < 5 or lut_head_has5(g)
+
+    def uses_native_engine(self, st: State) -> bool:
+        """True when the whole recursion from this node runs in a native
+        engine.  Gate mode completes natively; the
+        LUT engine hands its device-work nodes to the service of
+        kwan._lut_engine_service and resumes in place.  Verbose LUT runs
+        stay on the Python recursion: the reference's find lines
+        ("[   0] Found 5LUT: ...", lut.c:219-222) are printed by the
+        Python decode paths the engine bypasses."""
+        if self.opt.lut_graph and self.opt.verbosity >= 1:
+            return False
+        return self.uses_native_step(st)
+
+    def gate_engine_caller(self):
+        if self._gate_engine_caller is None:
+            from .. import native
+
+            self._gate_engine_caller = native.GateEngineCaller(
+                self.pair_table_np, self.pair_entries,
+                self.not_table_np, self.not_entries,
+                self.triple_table_np, self.triple_entries,
+            )
+        return self._gate_engine_caller
+
+    def lut_engine_caller(self):
+        if self._lut_engine_caller is None:
+            from .. import native
+
+            self._lut_engine_caller = native.LutEngineCaller(
+                self.pair_table_np, self.pair_entries
+            )
+        return self._lut_engine_caller
+
     # -- node heads -------------------------------------------------------
 
-    def lut_step(self, st: State, target, mask, inbits) -> np.ndarray:
-        """Steps 1-3 plus the whole 3-LUT and (small-space) 5-LUT sweeps of
-        one LUT-mode search node, for one seed (sweeps.lut_step_stream).
-        Returns the int32[8] verdict."""
+    def _node_operands(self, st: State):
+        """(tables, g, valid_g, combos, pair_valid) of a fused node head."""
         g = st.num_gates
         b = bucket_size(g)
-        tables = self.device_tables(st)
-        valid_g = torch.arange(b, device=self.device) < g
         combos = self._pair_combos(b)
-        pair_valid = (combos < g).all(dim=1)
+        return (
+            self.device_tables(st), g,
+            torch.arange(b, device=self.device) < g,
+            combos, (combos < g).all(dim=1),
+        )
+
+    def _count_gate_step(self, g: int, has_triple: bool, v) -> Tuple[int, int, int]:
+        step = int(v[0])
+        if step == 0 or step >= 3:
+            self.stats.inc("pair_candidates", g * (g - 1) // 2)
+        if has_triple and step in (0, 5):
+            self.stats.inc("triple_candidates", int(v[3]))
+        return step, int(v[1]), int(v[2])
+
+    def _gate_step_native(self, st: State, target, mask):
+        """Host-native gate-mode node head (csrc sbg_gate_step): the
+        device verdict without the device."""
+        g = st.num_gates
+        has_not = bool(self.not_entries) and not self.opt.lut_graph
+        has_triple = not self.opt.lut_graph and g >= 3
+        total3 = comb.n_choose_k(g, 3) if has_triple else 0
+        chunk3 = pick_chunk(max(total3, 1), STREAM_CHUNK[3])
+        if self._gate_step_caller is None:
+            from .. import native
+
+            self._gate_step_caller = native.GateStepCaller(
+                self.pair_table_np, self.not_table_np, self.triple_table_np
+            )
+        v = self._gate_step_caller(
+            np.ascontiguousarray(st.live_tables()), g, bucket_size(g),
+            np.asarray(target), np.asarray(mask), has_not, has_triple,
+            total3, chunk3, self.next_seed(),
+        )
+        return self._count_gate_step(g, has_triple, v)
+
+    def gate_step(self, st: State, target, mask):
+        """Steps 1-4 of one gate-mode search node for one seed
+        (sweeps.gate_step_stream).  Returns (step, x0, x1); decode the
+        payload with :meth:`decode_pair_hit` / :meth:`decode_triple_hit`.
+        Routes to the host with :meth:`uses_native_step`."""
+        if self.uses_native_step(st):
+            return self._gate_step_native(st, target, mask)
+        tables, g, valid_g, combos, pair_valid = self._node_operands(st)
+        has_not = bool(self.not_entries) and not self.opt.lut_graph
+        has_triple = not self.opt.lut_graph and g >= 3
+        total3 = comb.n_choose_k(g, 3) if has_triple else 0
+        chunk3 = pick_chunk(max(total3, 1), STREAM_CHUNK[3])
+        v = sweeps.gate_step_stream(
+            tables, valid_g, combos, pair_valid, self.binom, g,
+            self.words(target), self.words(mask),
+            torch.from_numpy(self.excl_array([])).to(self.device), total3,
+            self.pair_table, self.not_table if has_not else self.pair_table,
+            self.triple_table, self.next_seed(),
+            chunk3=chunk3, has_not=has_not, has_triple=has_triple,
+        )
+        return self._count_gate_step(g, has_triple, v)
+
+    def _lut_head_sizes(self, g: int):
         total3 = comb.n_choose_k(g, 3)
         total5 = comb.n_choose_k(g, 5)
         has5 = lut_head_has5(g)
         chunk3 = pick_chunk(max(total3, 1), STREAM_CHUNK[3])
         chunk5 = pick_chunk(max(total5, 1), STREAM_CHUNK[5]) if has5 else 1024
+        return total3, total5, has5, chunk3, chunk5
+
+    def _count_lut_step(self, g: int, v) -> np.ndarray:
+        step = int(v[0])
+        if step == 0 or step >= 3:
+            self.stats.inc("pair_candidates", g * (g - 1) // 2)
+        self.stats.inc("lut3_candidates", int(v[6]))
+        self.stats.inc("lut5_candidates", int(v[7]))
+        return v
+
+    def _lut_step_native(self, st: State, target, mask, inbits) -> np.ndarray:
+        """Host-native LUT head (csrc sbg_lut_step): the device verdict
+        without the device.  Pivot-sized 5-LUT sweeps and overflow
+        re-drives still go to the device (lut_search_from_head)."""
+        from .. import native
+
+        g = st.num_gates
+        total3, total5, has5, chunk3, chunk5 = self._lut_head_sizes(g)
+        _, w_tab, m_tab = sweeps.lut5_split_tables()
+        v = native.lut_step(
+            np.ascontiguousarray(st.live_tables()), g, bucket_size(g),
+            np.asarray(target), np.asarray(mask), self.pair_table_np,
+            self.excl_array(inbits), total3, chunk3, has5, total5, chunk5,
+            LUT5_HEAD_SOLVE_ROWS, w_tab, m_tab, self.next_seed(),
+        )
+        return self._count_lut_step(g, v)
+
+    def lut_step(self, st: State, target, mask, inbits) -> np.ndarray:
+        """Steps 1-3 plus the whole 3-LUT and (small-space) 5-LUT sweeps of
+        one LUT-mode search node, for one seed (sweeps.lut_step_stream).
+        Returns the int32[8] verdict.  Routes to the host with
+        :meth:`uses_native_step`."""
+        if self.uses_native_step(st):
+            return self._lut_step_native(st, target, mask, inbits)
+        tables, g, valid_g, combos, pair_valid = self._node_operands(st)
+        total3, total5, has5, chunk3, chunk5 = self._lut_head_sizes(g)
         jw, jm = self.lut5_tabs()
         v = sweeps.lut_step_stream(
             tables, valid_g, combos, pair_valid, self.binom, g,
@@ -362,17 +579,56 @@ class SearchContext:
             chunk3=chunk3, chunk5=chunk5, has5=has5,
             solve_rows=LUT5_HEAD_SOLVE_ROWS,
         )
-        step = int(v[0])
-        if step == 0 or step >= 3:
-            self.stats.inc("pair_candidates", g * (g - 1) // 2)
-        self.stats.inc("lut3_candidates", int(v[6]))
-        self.stats.inc("lut5_candidates", int(v[7]))
+        return self._count_lut_step(g, v)
+
+    def _lut7_step_native(self, st: State, target, mask, inbits) -> np.ndarray:
+        """7-LUT step with stage A on the host (csrc sbg_lut7_stage_a, the
+        device stream's feasibility and top-k order) and stage B on the
+        host (csrc sbg_lut7_solve_small; stage A returns at most solve7 =
+        LUT7_HEAD_SOLVE_ROWS rows, the host solver's cap).  Builds the
+        int32[14] verdict of sweeps.lut7_step_stream."""
+        from .. import native
+
+        g = st.num_gates
+        total7 = comb.n_choose_k(g, 7)
+        chunk7 = pick_chunk(max(total7, 1), STREAM_CHUNK[7])
+        solve7 = LUT7_HEAD_SOLVE_ROWS
+        seed = self.next_seed()
+        nfeas, ranks, r1, r0 = native.lut7_stage_a(
+            np.ascontiguousarray(st.live_tables()), g, np.asarray(target),
+            np.asarray(mask), self.excl_array(inbits), total7, chunk7, solve7,
+            seed,
+        )
+        v = np.zeros(14, dtype=np.int32)
+        v[4] = min(total7, chunk7)
+        if nfeas:
+            take = ranks.shape[0]
+            sr1 = np.full((solve7, 4), 0xFFFFFFFF, dtype=np.uint32)
+            sr0 = np.full((solve7, 4), 0xFFFFFFFF, dtype=np.uint32)
+            sr1[:take] = r1
+            sr0[:take] = r0
+            idx_tab, _ = sweeps.lut7_pair_tables()
+            sol = native.lut7_solve_small(r1, r0, solve7, idx_tab, seed ^ 0x77A1)
+            found, best_t, sigma, flat = (int(x) for x in sol)
+            overflow = nfeas > solve7 and not found
+            v[0] = 1 if found else (2 if overflow else 0)
+            v[1] = int(ranks[best_t]) if best_t < take else 0
+            v[2] = sigma
+            v[3] = flat
+            v[5] = min(nfeas, solve7)
+            v[6:10] = sr1[best_t].view(np.int32)
+            v[10:14] = sr0[best_t].view(np.int32)
+        self.stats.inc("lut7_candidates", int(v[4]))
+        self.stats.inc("lut7_solved", int(v[5]))
         return v
 
     def lut7_step(self, st: State, target, mask, inbits) -> np.ndarray:
         """Whole single-chunk 7-LUT search for one seed
         (sweeps.lut7_step_stream); only valid when ``lut_head_has7(g)``.
-        Returns the int32[14] verdict."""
+        Returns the int32[14] verdict.  Routes stage A to the host with
+        :meth:`uses_native_step`."""
+        if self.uses_native_step(st):
+            return self._lut7_step_native(st, target, mask, inbits)
         g = st.num_gates
         total7 = comb.n_choose_k(g, 7)
         chunk7 = pick_chunk(max(total7, 1), STREAM_CHUNK[7])
@@ -388,9 +644,17 @@ class SearchContext:
         self.stats.inc("lut7_solved", int(v[5]))
         return v
 
-    def decode_pair_hit(self, st: State, index: int, slot: int):
-        """(gid1, gid2, entry) for a fused-head pair hit."""
+    def decode_pair_hit(self, st: State, index: int, slot: int, use_not: bool = False):
+        """(gid1, gid2, entry) for a fused-head pair hit (``use_not``: a
+        hit of the NOT-augmented table, step 4)."""
+        entries = self.not_entries if use_not else self.pair_entries
         pair = self._pair_combos_np(bucket_size(st.num_gates))[index]
-        entry = self.pair_entries[slot]
+        entry = entries[slot]
         gids = [int(pair[p]) for p in entry.perm]
         return gids[0], gids[1], entry
+
+    def decode_triple_hit(self, st: State, rank: int, slot: int):
+        """(gids, entry) for a fused-head triple hit."""
+        row = comb.unrank_combination(rank, st.num_gates, 3)
+        entry = self.triple_entries[slot]
+        return [int(row[p]) for p in entry.perm], entry

@@ -1,16 +1,26 @@
-"""Kwan's recursive circuit construction, LUT mode.
+"""Kwan's recursive circuit construction.
 
-Host-side mirror of the reference's ``create_circuit`` (sboxgates.c:282-616)
-for LUT graphs: branchy control flow stays in Python while every candidate
-scan runs as a device sweep.  States are value-copied around the step-5
-multiplexer recursion exactly as in the reference — the copy semantics are
-load-bearing for backtracking.  The mux branches run serially and are
-folded in bit order.
+Host-side mirror of the reference's ``create_circuit`` (sboxgates.c:282-616):
+branchy control flow stays in Python while every candidate scan runs as a
+device sweep or, for states the placement policy sends to the host, on the
+native runtime.  States are value-copied around the step-5 multiplexer
+recursion exactly as in the reference — the copy semantics are load-bearing
+for backtracking.  The mux branches run serially and are folded in bit
+order.
+
+With ``Options.native`` the whole recursion from a node runs in the
+native engine (csrc ``sbg_gate_engine`` / ``sbg_lut_engine``); Python only
+replays the adopted gate additions and re-verifies them.  The LUT engine
+hands the nodes that need device work (pivot-sized 5-LUT space, head-solver
+overflow, staged 7-LUT) to :func:`_lut_engine_service`, which runs the same
+search drivers on the device, and resumes in place.
 """
 
 from __future__ import annotations
 
 from typing import List
+
+import numpy as np
 
 from ..core import boolfunc as bf
 from ..graph.state import (
@@ -31,17 +41,25 @@ def create_circuit(
     gates to ``st`` as needed; NO_GATE on failure.  Step numbers reference
     Kwan's paper, as in the reference implementation."""
     opt = ctx.opt
-    if not opt.lut_graph:
-        raise NotImplementedError("gate mode is not ported; use lut_graph=True")
     metric = opt.metric
+
+    if ctx.uses_native_engine(st):
+        if opt.lut_graph:
+            return _native_lut_engine_search(ctx, st, target, mask, inbits)
+        return _native_engine_search(ctx, st, target, mask, inbits)
     ctx.stats.inc("python_nodes")
 
-    # Steps 1-3 and the whole 3-LUT / small-space 5-LUT sweeps for one
-    # seed; budget gates are applied host-side in the reference's order.
-    head = ctx.lut_step(st, target, mask, inbits)
-    step, x0, x1 = int(head[0]), int(head[1]), int(head[2])
-    if step >= 4:
-        step = 0  # LUT payloads are consumed after the step 1-3 gates
+    # Steps 1-4 for one seed; budget gates are applied host-side in the
+    # reference's order (sboxgates.c:301-435).  The LUT head also runs the
+    # whole 3-LUT and small-space 5-LUT sweeps.
+    head = None
+    if opt.lut_graph:
+        head = ctx.lut_step(st, target, mask, inbits)
+        step, x0, x1 = int(head[0]), int(head[1]), int(head[2])
+        if step >= 4:
+            step = 0  # LUT payloads are consumed after the step 1-3 gates
+    else:
+        step, x0, x1 = ctx.gate_step(st, target, mask)
 
     # Steps 1-2: an existing gate, or the complement of one.
     if step == 1:
@@ -58,15 +76,38 @@ def create_circuit(
     if not check_num_gates_possible(st, 1, get_sat_metric(bf.AND), metric):
         return NO_GATE
     if step == 3:
-        g1, g2, entry = ctx.decode_pair_hit(st, x0, x1)
+        g1, g2, entry = ctx.decode_pair_hit(st, x0, x1, use_not=False)
         ret = st.add_boolfunc_2(entry.fun, g1, g2, metric)
         st.verify_gate(ret, target, mask)
         return ret
 
-    ret = lut_search_from_head(ctx, st, target, mask, inbits, head)
-    if ret != NO_GATE:
-        st.verify_gate(ret, target, mask)
-        return ret
+    if opt.lut_graph:
+        ret = lut_search_from_head(ctx, st, target, mask, inbits, head)
+        if ret != NO_GATE:
+            st.verify_gate(ret, target, mask)
+            return ret
+    else:
+        # Step 4a: pairs with NOT-augmented functions.
+        if not check_num_gates_possible(
+            st, 2, get_sat_metric(bf.AND) + get_sat_metric(bf.NOT), metric
+        ):
+            return NO_GATE
+        if step == 4:
+            g1, g2, entry = ctx.decode_pair_hit(st, x0, x1, use_not=True)
+            ret = st.add_boolfunc_2(entry.fun, g1, g2, metric)
+            st.verify_gate(ret, target, mask)
+            return ret
+
+        # Step 4b: gate triples x 3-input functions.
+        if not check_num_gates_possible(
+            st, 3, 2 * get_sat_metric(bf.AND) + get_sat_metric(bf.NOT), metric
+        ):
+            return NO_GATE
+        if step == 5:
+            gids, entry = ctx.decode_triple_hit(st, x0, x1)
+            ret = st.add_boolfunc_3(entry.fun, gids[0], gids[1], gids[2], metric)
+            st.verify_gate(ret, target, mask)
+            return ret
 
     # Step 5: multiplex over an unused input bit and recurse on the two
     # Karnaugh-map halves (sboxgates.c:438-607).  Only the first six used
@@ -107,31 +148,213 @@ def create_circuit(
     return best_out
 
 
+# -------------------------------------------------------------------------
+# Native engines
+# -------------------------------------------------------------------------
+
+# Engine stats slots (csrc eng_run) -> context counters; slot 0 is nodes.
+_ENGINE_STATS = {
+    1: "pair_candidates",
+    2: "triple_candidates",
+    3: "lut3_candidates",
+    4: "lut5_candidates",
+    5: "lut7_candidates",
+    6: "lut7_solved",
+    7: "engine_devcalls",
+}
+
+
+class _EngineView:
+    """Read-only :class:`State` facade over the LUT engine's live tables
+    for the device-work service: the search drivers it calls
+    (lut5_search, lut5_resume_overflow, lut7_search) touch only
+    ``num_gates`` and ``live_tables()``."""
+
+    __slots__ = ("_tables", "num_gates")
+
+    def __init__(self, tables, g: int):
+        self._tables = tables
+        self.num_gates = g
+
+    def live_tables(self):
+        return self._tables
+
+
+def _lut_engine_service(ctx: SearchContext):
+    """The LUT engine's device-work service (the Python half of csrc's
+    sbg_eng_devcb contract): each request runs the search driver the
+    Python recursion would run at that node, against ``ctx``'s seeds and
+    counters, while the engine waits in the callback."""
+    from . import lut as lutmod
+
+    def service(kind, tables, g, target, mask, inbits, arg0, rng, slot):
+        st = _EngineView(tables, g)
+        if kind == 1:  # pivot-sized space: the full 5-LUT search
+            res = lutmod.lut5_search(ctx, st, target, mask, inbits)
+        elif kind == 2:  # head-solver overflow: resume from chunk arg0
+            res = lutmod.lut5_resume_overflow(ctx, st, target, mask, inbits, arg0)
+        elif kind == 3:  # staged 7-LUT
+            res = lutmod.lut7_search(ctx, st, target, mask, inbits)
+            if res is None:
+                return None
+            return (
+                res["func_outer"], res["func_middle"], res["func_inner"],
+                *res["gates"],
+            )
+        else:
+            raise ValueError(f"unknown engine device-work kind {kind}")
+        if res is None:
+            return None
+        return (res["func_outer"], res["func_inner"], *res["gates"])
+
+    return service
+
+
+def _engine_replay(ctx, st: State, target, mask, out_gid, added, stats) -> int:
+    """Shared tail of both engines: merge the counters, replay the adopted
+    gate additions onto ``st`` (tables and SAT metric recomputed by the
+    State) and re-verify; the engine's result is never trusted blindly."""
+    for idx, key in _ENGINE_STATS.items():
+        if int(stats[idx]):
+            ctx.stats.inc(key, int(stats[idx]))
+    ctx.stats.inc("engine_nodes", int(stats[0]))
+    if out_gid == NO_GATE:
+        return NO_GATE
+    for row in added:
+        t, i1, i2, i3, func = (int(x) for x in row)
+        st.replay_gate(t, i1, i2 if t != bf.NOT else NO_GATE, i3, func)
+    st.verify_gate(out_gid, target, mask)
+    return out_gid
+
+
+def _engine_seed(ctx) -> int:
+    """The engine's PRNG seed: one draw from the context's generator."""
+    return int(ctx.rng.integers(0, 2**63)) if ctx.opt.randomize else 0
+
+
+def _engine_args(ctx, st: State, target, mask, inbits):
+    return (
+        np.ascontiguousarray(st.live_tables()), st.num_gates, st.num_inputs,
+        st.max_gates, st.sat_metric, st.max_sat_metric, ctx.opt.metric,
+        np.asarray(target), np.asarray(mask), list(inbits), ctx.opt.randomize,
+        _engine_seed(ctx),
+    )
+
+
+def _native_engine_search(
+    ctx: SearchContext, st: State, target, mask, inbits: List[int]
+) -> int:
+    """The gate-mode recursion in the native engine."""
+    out_gid, added, stats = ctx.gate_engine_caller()(
+        *_engine_args(ctx, st, target, mask, inbits),
+        use_not=bool(ctx.not_entries),
+    )
+    return _engine_replay(ctx, st, target, mask, out_gid, added, stats)
+
+
+def _native_lut_engine_search(
+    ctx: SearchContext, st: State, target, mask, inbits: List[int]
+) -> int:
+    """The LUT-mode recursion in the native engine, its device-work nodes
+    serviced by :func:`_lut_engine_service`.  An exception in the service
+    propagates once the engine has unwound."""
+    from .. import native
+
+    if ctx.lut_engine_devcb is None:
+        ctx.lut_engine_devcb = native.make_eng_devcb(_lut_engine_service(ctx))
+    out_gid, added, stats = ctx.lut_engine_caller()(
+        *_engine_args(ctx, st, target, mask, inbits), devcb=ctx.lut_engine_devcb,
+    )
+    return _engine_replay(ctx, st, target, mask, out_gid, added, stats)
+
+
+# -------------------------------------------------------------------------
+# Step-5 multiplexers
+# -------------------------------------------------------------------------
+
+
 def _mux_try_bit(ctx: SearchContext, st: State, target, mask, bit, tracked):
-    """One select bit of the step-5 LUT multiplexer on a copy of ``st``;
-    returns (new_state, out_gate) or None (sboxgates.c:488-512)."""
+    """One select bit of the step-5 multiplexer: the mux construction(s) on
+    copies of ``st``; returns (new_state, out_gate) or None."""
     metric = ctx.opt.metric
     next_inbits = tracked + [bit]
     fsel = st.table(bit).copy()
-    nst = st.copy()
-    nst.max_gates -= 1  # reserve room for the mux LUT
-    fb = create_circuit(ctx, nst, target, mask & ~fsel, next_inbits)
-    if fb == NO_GATE:
+
+    if ctx.opt.lut_graph:
+        nst = st.copy()
+        nst.max_gates -= 1  # reserve room for the mux LUT
+        fb = create_circuit(ctx, nst, target, mask & ~fsel, next_inbits)
+        if fb == NO_GATE:
+            return None
+        fc = create_circuit(ctx, nst, target, mask & fsel, next_inbits)
+        if fc == NO_GATE:
+            return None
+        nst.max_gates += 1
+        if fb == fc:
+            nst_out = fb
+        elif fb == bit:
+            nst_out = nst.add_and_gate(fb, fc, metric)
+        elif fc == bit:
+            nst_out = nst.add_or_gate(fb, fc, metric)
+        else:
+            # LUT mux 0xac = sel ? fc : fb (sboxgates.c:506-508)
+            nst_out = nst.add_lut(0xAC, bit, fb, fc)
+        if nst_out == NO_GATE:
+            return None
+        nst.verify_gate(nst_out, target, mask)
+        return nst, nst_out
+
+    and_xor = get_sat_metric(bf.AND) + get_sat_metric(bf.XOR)
+    or_xor = get_sat_metric(bf.OR) + get_sat_metric(bf.XOR)
+
+    # AND-based mux: out = fb ^ (sel & fc) (sboxgates.c:516-537)
+    nst_and = st.copy()
+    nst_and.max_gates -= 2
+    nst_and.max_sat_metric -= and_xor
+    fb = create_circuit(ctx, nst_and, target & ~fsel, mask & ~fsel, next_inbits)
+    mux_out_and = NO_GATE
+    if fb != NO_GATE:
+        fc = create_circuit(
+            ctx, nst_and, nst_and.table(fb) ^ target, mask & fsel, next_inbits
+        )
+        nst_and.max_gates += 2
+        nst_and.max_sat_metric += and_xor
+        andg = nst_and.add_and_gate(fc, bit, metric)
+        mux_out_and = nst_and.add_xor_gate(fb, andg, metric)
+        if mux_out_and != NO_GATE:
+            nst_and.verify_gate(mux_out_and, target, mask)
+
+    # OR-based mux: out = fd ^ (sel | fe) (sboxgates.c:539-567), under the
+    # AND mux's size when that one succeeded.
+    nst_or = st.copy()
+    if mux_out_and != NO_GATE:
+        nst_or.max_gates = nst_and.num_gates
+        nst_or.max_sat_metric = nst_and.sat_metric
+    nst_or.max_gates -= 2
+    nst_or.max_sat_metric -= or_xor
+    fd = create_circuit(ctx, nst_or, ~target & fsel, mask & fsel, next_inbits)
+    mux_out_or = NO_GATE
+    if fd != NO_GATE:
+        fe = create_circuit(
+            ctx, nst_or, nst_or.table(fd) ^ target, mask & ~fsel, next_inbits
+        )
+        nst_or.max_gates += 2
+        nst_or.max_sat_metric += or_xor
+        org = nst_or.add_or_gate(fe, bit, metric)
+        mux_out_or = nst_or.add_xor_gate(fd, org, metric)
+        if mux_out_or != NO_GATE:
+            nst_or.verify_gate(mux_out_or, target, mask)
+        nst_or.max_gates = st.max_gates
+        nst_or.max_sat_metric = st.max_sat_metric
+
+    if mux_out_and == NO_GATE and mux_out_or == NO_GATE:
         return None
-    fc = create_circuit(ctx, nst, target, mask & fsel, next_inbits)
-    if fc == NO_GATE:
-        return None
-    nst.max_gates += 1
-    if fb == fc:
-        nst_out = fb
-    elif fb == bit:
-        nst_out = nst.add_and_gate(fb, fc, metric)
-    elif fc == bit:
-        nst_out = nst.add_or_gate(fb, fc, metric)
+    if metric == GATES:
+        use_and = mux_out_or == NO_GATE or (
+            mux_out_and != NO_GATE and nst_and.num_gates < nst_or.num_gates
+        )
     else:
-        # LUT mux 0xac = sel ? fc : fb (sboxgates.c:506-508)
-        nst_out = nst.add_lut(0xAC, bit, fb, fc)
-    if nst_out == NO_GATE:
-        return None
-    nst.verify_gate(nst_out, target, mask)
-    return nst, nst_out
+        use_and = mux_out_or == NO_GATE or (
+            mux_out_and != NO_GATE and nst_and.sat_metric < nst_or.sat_metric
+        )
+    return (nst_and, mux_out_and) if use_and else (nst_or, mux_out_or)

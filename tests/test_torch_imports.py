@@ -45,6 +45,7 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.codegen.dot",
         "sboxgates_tpu_torch.search.kwan",
         "sboxgates_tpu_torch.graph.xmlio",
+        "sboxgates_tpu_torch.native",
     ):
         assert name in mods
 
@@ -67,6 +68,34 @@ def test_importing_every_module_loads_neither_jax_nor_reference():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_native_runtime_and_a_gate_search_load_neither_jax_nor_reference(tmp_path):
+    """The port's ctypes loader builds and loads the runtime, and a gate-mode
+    search through the native engine runs, without loading a module of
+    JAX or of the JAX package (its native binding included)."""
+    code = (
+        "import sys\n"
+        "from sboxgates_tpu_torch import native\n"
+        "assert native.available(), native.build_error()\n"
+        "from sboxgates_tpu_torch.cli import main\n"
+        f"rc = main(['-o', '0', '--seed', '1', '--device', 'cpu', "
+        f"'--output-dir', {str(tmp_path)!r}, "
+        f"{os.path.join(ROOT, 'tests', 'data', 'crypto1_fa.txt')!r}])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(rc, bad)\n"
+        "sys.exit(1 if bad or rc else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    env.pop("SBG_DISABLE_NATIVE", None)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert os.listdir(tmp_path) == ["1-006-0057-0-13a4fed5.xml"]
 
 
 @pytest.mark.parametrize("rel", SOURCES)

@@ -1,8 +1,8 @@
 """The port's CLI end to end on the CPU against the JAX package's CLI.
 
-With the native runtime off in the JAX package (``SBG_DISABLE_NATIVE=1``:
-the pure device-sweep path the port mirrors), the same command writes the
-same XML state files, byte for byte.  The JAX runs share one subprocess
+With the native runtime off in both packages (``SBG_DISABLE_NATIVE=1``:
+every node on the device sweeps), the same command writes the same XML
+state files, byte for byte.  The JAX runs share one subprocess
 (the native switch must be set before that package first loads its
 runtime).  DES S1 is also held against the committed file the JAX CLI
 wrote for the same command (tests/data/torch_golden/), the file the chip
@@ -124,8 +124,14 @@ def jax_runs(tmp_path_factory):
     return out, rcs, cases
 
 
+@pytest.fixture
+def native_off(monkeypatch):
+    """The port's CLI on its device route, as the JAX runs above."""
+    monkeypatch.setenv("SBG_DISABLE_NATIVE", "1")
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_cli_writes_the_jax_packages_files(name, jax_runs, tmp_path):
+def test_cli_writes_the_jax_packages_files(name, jax_runs, tmp_path, native_off):
     out, rcs, _ = jax_runs
     assert rcs[name] == 0
     rc = cli.main(CASES[name] + ["--device", "cpu", "--output-dir", str(tmp_path)])
@@ -145,7 +151,8 @@ def test_crypto1_golden_is_the_jax_clis_file(jax_runs):
         assert list(files.values()) == [f.read()]
 
 
-def test_des_s1_matches_the_jax_cli_and_golden_file(jax_runs, tmp_path, capsys):
+def test_des_s1_matches_the_jax_cli_and_golden_file(jax_runs, tmp_path, capsys,
+                                                    native_off):
     """``-l -o 0 --seed 1 des_s1.txt``: the file the JAX CLI writes (native
     off), byte for byte, which is also the committed golden file; every
     output gate realizes the S-box bit."""
@@ -176,7 +183,8 @@ def test_pivot_resume_golden_is_the_jax_clis_file(jax_runs):
 
 @pytest.mark.parametrize("backend", ["packed", "pre"])
 def test_pivot_backend_flag_writes_the_jax_clis_file(backend, jax_runs, tmp_path,
-                                                     monkeypatch, capsys):
+                                                     monkeypatch, capsys,
+                                                     native_off):
     """``--pivot-backend`` picks the pivot tile kernel (on the CPU, its
     plain version) of a search that finds its 5-LUT in the pivot sweep, and
     either one writes the JAX CLI's file."""
@@ -265,7 +273,7 @@ def test_bad_flags_fail_with_the_jax_message(argv, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-o", "0", DES],
+    ["-o", "0", DES, FA],
     ["-l", DES, FA],
 ])
 def test_unported_modes_fail_with_one_line(argv, capsys):

@@ -1,7 +1,7 @@
 """The port's ``--candidate-order`` CLI runs against the JAX package's CLI.
 
-With the native runtime off in the JAX package (``SBG_DISABLE_NATIVE=1``,
-its runs in one fresh subprocess), the same spectral-order command writes
+With the native runtime off in both packages (``SBG_DISABLE_NATIVE=1``,
+the JAX runs in one fresh subprocess), the same spectral-order command writes
 the same XML file, byte for byte: a G = 22 resume against a planted 7-LUT
 (the 7-LUT stage A reordered), the G = 50 and G = 99 resumes against a
 planted 5-LUT (the pivot tiles reordered).  DES S1 at seed 1 never reaches
@@ -107,12 +107,14 @@ def jax_runs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", sorted(ORDERED))
-def test_spectral_cli_writes_the_jax_clis_file(name, jax_runs, tmp_path, capsys):
+def test_spectral_cli_writes_the_jax_clis_file(name, jax_runs, tmp_path, capsys,
+                                               monkeypatch):
     """The spectral searches write the JAX CLI's files byte for byte, with
     ordered dispatches (``order_tier_dispatches`` > 0) exactly where the
     run reaches an ordered stream; the committed golden files are those
     files."""
     out, rcs, cases = jax_runs
+    monkeypatch.setenv("SBG_DISABLE_NATIVE", "1")  # the JAX runs' route
     rc = cli.main(dict(CLI_CASES, **cases)[name] + [
         "--device", "cpu", "-v", "-v", "--output-dir", str(tmp_path)])
     assert rc == 0

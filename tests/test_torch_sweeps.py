@@ -84,7 +84,8 @@ def test_priority_matches(seed, det_newest):
         assert (want >> 31).any()
 
 
-@pytest.mark.parametrize("g,k", [(12, 3), (40, 5), (30, 7)])
+@pytest.mark.parametrize("g,k", [(12, 3), (40, 5), (30, 7), (3, 3), (13, 7), (500, 3),
+                                 (512, 3)])
 def test_unrank_narrow_matches(g, k):
     rng = np.random.default_rng(g)
     total = jcomb.n_choose_k(g, k)
@@ -96,7 +97,7 @@ def test_unrank_narrow_matches(g, k):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("g,k", [(200, 5), (99, 7)])
+@pytest.mark.parametrize("g,k", [(200, 5), (99, 7), (500, 7)])
 def test_unrank_wide_matches(g, k):
     rng = np.random.default_rng(g)
     total = jcomb.n_choose_k(g, k)
