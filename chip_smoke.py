@@ -78,9 +78,32 @@ prints no result.  Phases, each of which raises on failure:
       beside phase 3's;
    d. phase 4a's G = 99 resume without ``-v`` on the default route: the LUT
       engine's one device-work request runs K1's 8 windows over 191 tiles;
-   e. one gate_step on the device and on the host at G = 64, 200 and 500.
+   e. one gate_step on the device and on the host at G = 64, 200 and 500;
+8. resilience (every file and journal the JAX CLI's under the same faults,
+   tests/data/torch_golden/journal/<case>/):
+   a. ``SBG_DISABLE_NATIVE=1 -l -o 0 -i 2 --seed 1 sboxes/des_s1.txt`` in a
+      fresh process with ``SBG_FAULTS=ckpt.write:crash@2`` exits 17 in its
+      second checkpoint write, and ``--resume-run`` in another finishes
+      it (K3 launches);
+   b. 7d's G = 99 resume with ``--dispatch-timeout 2`` and
+      ``dispatch.sweep:hang@1``: one breach, one retry, 7d's K1 windows and
+      file;
+   c. the same with ``hang@1+``: three breaches, the circuit breaker
+      tripped, no K1 window, the host chunk stream on K3;
+   d. the same resume with ``native.devcb:raise@1``: one stderr line, the
+      node rerun on the Python engine with K1 windows on the card.
+   Each case prints its wall, K1 and K3 launches and its breach, retry and
+   trip counters on one line;
+9. the journal's cost on the default route: 7c's and 7d's commands five
+   more times each, every run's wall beside its time in the journal's
+   writes and in the device probe (every CLI run's line prints the two).
 
-The CLI runs (phases 3, 4a, 5, 7a-7d) and phase 6 are the main path.  Every launch
+Every CLI run's output directory must hold its XML files and the JAX CLI's
+journal for the same command (``search.journal.jsonl`` and ``.json``, the
+goldens under tests/data/torch_golden/journal/, written by
+tests/torch_journal_goldens.py), and nothing else.
+
+The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d) and phase 6 are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
 kernel and K2's on the G = 99 resume with their backend, K5 on the
@@ -88,7 +111,8 @@ spectral G = 99 resume, K4 on codegen, K1's window kernel through the
 engine's service in 7d), none of K1-K5 in gate mode, K5 never on a lexicographic path
 nor on DES S1 spectral, the single-tile K1 and K2 on no path, and K1–K3
 (launches and tiles) as often on the lexicographic paths as LEX_LAUNCHES
-records.  Phases 4b and 4c call the
+records; in phase 8, K1 on 8b and 8d, K3 on 8a and 8c and no K1 on 8c.
+Phases 4b and 4c call the
 sweep directly and report their launches in their own lines only.  The last
 lines are one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -103,6 +127,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -700,16 +725,102 @@ def counting_calls(cls, method: str, limit=None):
         cls.__init__ = real_init
 
 
+@contextlib.contextmanager
+def timing_calls(groups):
+    """Wall seconds spent in the functions of each group while the block
+    runs: ``groups`` maps a name to ``(owner, attribute)`` pairs; yields a
+    dict of name -> ``[seconds, calls]``.  Only a group's outermost calls
+    count (a timed function called by another of its group counts once)."""
+    spent = {g: [0.0, 0] for g in groups}
+    depth = {g: 0 for g in groups}
+    saved = []
+
+    def timed(group, real):
+        def wrapper(*a, **kw):
+            depth[group] += 1
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                depth[group] -= 1
+                if depth[group] == 0:
+                    spent[group][0] += time.perf_counter() - t0
+                    spent[group][1] += 1
+        return wrapper
+
+    for group, targets in groups.items():
+        for owner, attr in targets:
+            real = getattr(owner, attr)
+            saved.append((owner, attr, real))
+            setattr(owner, attr, timed(group, real))
+    try:
+        yield spent
+    finally:
+        for owner, attr, real in reversed(saved):
+            setattr(owner, attr, real)
+
+
+JOURNAL_FILES = ("search.journal.jsonl", "search.journal.json")
+JOURNAL_GOLDEN = os.path.join(GOLDEN, "journal")
+
+
+def _journal_timed():
+    """The journal's writes, timed in every CLI run: its appends (each
+    record's fsync and every snapshot) and its atomic rewrites (the
+    truncate at start, the tail rewrite at resume)."""
+    from sboxgates_tpu_torch.resilience import journal
+
+    return {"journal": [(journal.SearchJournal, "append"),
+                        (journal, "durable_write_text")]}
+# The golden journals name their inputs by absolute path, the checkout's
+# root written as this mark (tests/torch_journal_goldens.py).
+ROOT_MARK = "@ROOT@"
+
+
+def check_run_dir(label: str, d: str, journal: str, xml_goldens=None) -> list:
+    """The files of a CLI run's output directory: its XML files and its
+    journal, nothing else (a stray file fails).  The journal must be the
+    JAX CLI's for the same command, byte for byte (GOLDEN/journal/<journal>/,
+    the mark replaced by this checkout's root), and so must every XML file
+    when ``xml_goldens`` (a directory) is given.  Returns the XML paths."""
+    names = sorted(os.listdir(d))
+    xmls = [n for n in names if n.endswith(".xml")]
+    stray = sorted(set(names) - set(xmls) - set(JOURNAL_FILES))
+    if stray or not set(JOURNAL_FILES) <= set(names):
+        raise AssertionError(f"{label}: {d} holds {names}: expected the XML "
+                             f"files and {JOURNAL_FILES} only")
+    want = {}
+    for n in JOURNAL_FILES:
+        with open(os.path.join(JOURNAL_GOLDEN, journal, n), encoding="utf-8") as f:
+            want[n] = f.read().replace(ROOT_MARK, ROOT).encode("utf-8")
+    if xml_goldens is not None:
+        gx = sorted(n for n in os.listdir(xml_goldens) if n.endswith(".xml"))
+        if gx != xmls:
+            raise AssertionError(f"{label}: wrote {xmls}, the JAX CLI {gx}")
+        for n in gx:
+            with open(os.path.join(xml_goldens, n), "rb") as f:
+                want[n] = f.read()
+    for n, data in want.items():
+        with open(os.path.join(d, n), "rb") as f:
+            if f.read() != data:
+                raise AssertionError(f"{label}: {n} differs from the JAX CLI's")
+    return [os.path.join(d, n) for n in xmls]
+
+
 def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
-            native: bool = False, verbose: bool = True):
-    """``python -m sboxgates_tpu_torch <argv> [-v -v] --output-dir <dir>`` in
-    process, on ``dev``, on the native route or (``native=False``) the
-    device route: one state file; every output gate in it is checked
-    against the S-box ``box``, and its bytes against ``golden`` (the file
-    the JAX CLI writes for the same command and route).  Returns the state
-    file's path, the run's counters (its search context's stats, the
-    ``-v -v`` line's) with ``gate_step`` calls added, and its wall
-    seconds."""
+            native: bool = False, verbose: bool = True, journal: str = None,
+            extra=(), faults_spec: str = None):
+    """``python -m sboxgates_tpu_torch <argv> [-v -v] <extra> --output-dir
+    <dir>`` in process, on ``dev``, on the native route or
+    (``native=False``) the device route, with the fault sites of
+    ``faults_spec`` (``SBG_FAULTS`` grammar) armed: one state file; every
+    output gate in it is checked against the S-box ``box``, its bytes
+    against ``golden`` (the file the JAX CLI writes for the same command,
+    route and faults), and the directory by :func:`check_run_dir` against
+    the journal golden ``journal`` (default: the label's last word).
+    Returns the state file's path, the run's counters (its search
+    context's stats, the ``-v -v`` line's) with ``gate_step`` calls added
+    and the run's standard error as ``stderr``, and its wall seconds."""
     from sboxgates_tpu_torch import cli
     from sboxgates_tpu_torch.core import ttable as tt
     from sboxgates_tpu_torch.graph.xmlio import load_state
@@ -718,18 +829,24 @@ def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
 
     d = os.path.join(outdir, label.split()[-1])
     os.makedirs(d)
-    buf = io.StringIO()
+    buf, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf), native_route(native), \
-            counting_calls(SearchContext, "gate_step") as seen:
-        rc = cli.main([*argv, *(["-v", "-v"] if verbose else []),
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err), \
+            native_route(native), armed(faults_spec), \
+            counting_calls(SearchContext, "gate_step") as seen, \
+            timing_calls(_journal_timed() | {"probe": [(cli, "_probe_device")]}) as spent:
+        rc = cli.main([*argv, *(["-v", "-v"] if verbose else []), *extra,
                        "--device", dev.type, "--output-dir", d, box])
     wall = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"{label} exited {rc}")
+        raise AssertionError(f"{label} exited {rc}: {err.getvalue()[-2000:]}")
     stats = {k: int(v) for k, v in seen["instances"][-1].stats.items()}
     stats["gate_step_calls"] = seen["calls"]
-    names = sorted(n for n in os.listdir(d) if n.endswith(".xml"))
+    stats["stderr"] = err.getvalue()
+    stats["journal_s"], stats["journal_writes"] = spent["journal"]
+    stats["probe_s"] = spent["probe"][0]
+    names = [os.path.basename(p) for p in
+             check_run_dir(label, d, journal or label.split()[-1])]
     if len(names) != 1:
         raise AssertionError(f"{label}: expected one state file, found {names}")
     path = os.path.join(d, names[0])
@@ -744,10 +861,28 @@ def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
     log(f"{label}: {names[0]} in {wall:.2f} s "
         f"({'native' if native else 'device'} route), "
         f"{st.num_gates - st.num_inputs} gates, outputs verified, XML "
-        f"{'byte-identical to' if same else 'DIFFERS from'} the golden file")
+        f"{'byte-identical to' if same else 'DIFFERS from'} the golden file, "
+        "journal byte-identical to the JAX CLI's; "
+        f"{1e3 * stats['journal_s']:.3f} ms in {stats['journal_writes']} journal "
+        f"writes, {1e3 * stats['probe_s']:.3f} ms in the device probe")
     if not same:
         raise AssertionError(f"{label}: XML differs from {golden}")
     return path, stats, wall
+
+
+@contextlib.contextmanager
+def armed(spec):
+    """The fault sites of ``spec`` (``SBG_FAULTS`` grammar) armed while the
+    block runs, every site disarmed (and its hits reset) after it."""
+    from sboxgates_tpu_torch.resilience import faults
+
+    faults.disarm()
+    for site, s in faults.parse_spec(spec or "").items():
+        faults.arm(site, s.action, f"{s.first}{'' if s.once else '+'}")
+    try:
+        yield
+    finally:
+        faults.disarm()
 
 
 DES_ARGV = ["-l", "-o", "0", "--seed", "1"]
@@ -761,6 +896,10 @@ G99_BOX = os.path.join(GOLDEN, "rijndael_planted_bit0.txt")
 G22_ARGV = ["-l", "-o", "0", "--seed", "1", "-g",
             os.path.join(GOLDEN, "rijndael_g22_state.xml")]
 G22_BOX = os.path.join(GOLDEN, "rijndael_planted7_bit0.txt")
+VV = ["-v", "-v"]
+CRASH_ARGV = ["-l", "-o", "0", "-i", "2", "--seed", "1"]
+CRASH_SPEC = "ckpt.write:crash@2"
+HANG_TIMEOUT = ["--dispatch-timeout", "2"]
 
 
 def phase_main_path(dev, outdir: str):
@@ -830,6 +969,7 @@ def phase_resume_pivot(dev, backend: str, outdir: str):
         dev, f"phase 4a resume G=99 g99_{backend}",
         G99_ARGV + ["--pivot-backend", backend], G99_BOX,
         os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml"), outdir,
+        journal="g99",
     )
 
 
@@ -1238,6 +1378,39 @@ def phase_engine_service(dev, outdir: str):
     return path, stats, wall
 
 
+JOURNAL_COST_RUNS = 5
+
+
+def phase_journal_cost(dev, outdir: str) -> dict:
+    """Phase 9: what the journal costs on the default route.  7c's and 7d's
+    commands JOURNAL_COST_RUNS more times each (every file and journal
+    checked as there): each run's wall, its time in the journal's writes
+    and in the device probe, and their medians."""
+    cases = (
+        ("des_l_native", DES_ARGV, DES_BOX,
+         os.path.join(GATE_GOLDEN, "des_l_native", "1-011-0000-0-fa23f056.xml")),
+        ("g99_native", G99_ARGV, G99_BOX,
+         os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml")),
+    )
+    out = {}
+    for name, argv, box, golden in cases:
+        rows = []
+        for r in range(JOURNAL_COST_RUNS):
+            _, st, wall = run_cli(
+                dev, f"phase 9 journal cost {name}_{r}", argv, box, golden,
+                outdir, native=True, verbose=False, journal=name)
+            rows.append((wall, st["journal_s"], st["probe_s"],
+                         st["journal_writes"]))
+        wall, jour, probe, writes = (statistics.median(c) for c in zip(*rows))
+        out[name] = {"walls": [r[0] for r in rows], "wall": wall,
+                     "journal_s": jour, "probe_s": probe}
+        log(f"  9 {name}: walls {[round(r[0], 4) for r in rows]} s; median "
+            f"wall {wall:.4f} s, journal {1e3 * jour:.3f} ms in {writes:g} "
+            f"writes, device probe {1e3 * probe:.3f} ms, wall less both "
+            f"{wall - jour - probe:.4f} s")
+    return out
+
+
 def rand_gate_state(rng, num_inputs: int, extra: int):
     """A random gate state (the construction of tests/test_native.py): AND,
     OR and XOR gates and, one time in four, a NOT."""
@@ -1299,6 +1472,118 @@ def phase_gate_placement(dev) -> dict:
     return out
 
 
+# Runs the port's CLI in a fresh process on argv[2] (JSON) from the
+# checkout argv[1], then prints its K1/K3 launches and the counters of its
+# search context (a crashed run prints nothing).
+_CLI_PROCESS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from sboxgates_tpu_torch import cli
+from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile
+from sboxgates_tpu_torch.search.context import SearchContext
+made, init = [], SearchContext.__init__
+def record(self, *a, **k):
+    init(self, *a, **k)
+    made.append(self)
+SearchContext.__init__ = record
+rc = cli.main(json.loads(sys.argv[2]))
+print(json.dumps({"rc": rc, "lut5_filter": lut5_filter.launches,
+                  "pivot_window": pivot_tile.launches["packed"],
+                  "stats": {k: int(v) for k, v in made[-1].stats.items()}}))
+sys.exit(rc)
+"""
+
+
+def cli_process(argv, env: dict, label: str):
+    """The port's CLI in a fresh process (``_CLI_PROCESS``): (exit code,
+    its launch counts and counters or None, wall seconds, output)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_PROCESS, ROOT, json.dumps(argv)],
+        env=env, capture_output=True, text=True, timeout=600, cwd=ROOT,
+    )
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    out = None
+    if lines and lines[-1].startswith("{"):
+        out = json.loads(lines[-1])
+    log(f"  {label}: exit {proc.returncode} in {wall:.2f} s")
+    return proc.returncode, out, wall, proc.stdout + proc.stderr
+
+
+def phase_crash_resume(dev, outdir: str) -> dict:
+    """Phase 8a: a real crash on the card.  ``SBG_DISABLE_NATIVE=1 -l -o 0
+    -i 2 --seed 1 sboxes/des_s1.txt`` in a fresh process with
+    ``SBG_FAULTS=ckpt.write:crash@2`` must die with exit code 17 in the
+    second iteration's checkpoint write; ``--resume-run`` in another
+    process finishes it (K3 on the device route), and the directory must
+    then hold the files the JAX CLI wrote for the same crash and resume:
+    both XML files and the journal."""
+    d = os.path.join(outdir, "crash_resume")
+    env = dict(os.environ, SBG_DISABLE_NATIVE="1", SBG_FAULTS=CRASH_SPEC)
+    rc, _, wall_crash, text = cli_process(
+        [*CRASH_ARGV, "--device", dev.type, "--output-dir", d, DES_BOX], env,
+        "phase 8a crash run")
+    if rc != 17:
+        raise AssertionError(f"8a: the crash run exited {rc}, not 17: {text[-2000:]}")
+    left = sorted(os.listdir(d))
+    if not any(n.startswith(".sbg-tmp-") for n in left):
+        raise AssertionError(f"8a: the crash left no torn temp file: {left}")
+    env.pop("SBG_FAULTS")
+    rc, out, wall, text = cli_process(
+        ["--resume-run", d, "--device", dev.type], env, "phase 8a resume run")
+    if rc != 0 or out is None:
+        raise AssertionError(f"8a: the resume exited {rc}: {text[-2000:]}")
+    check_run_dir("phase 8a crash_resume", d, "crash_resume",
+                  xml_goldens=os.path.join(JOURNAL_GOLDEN, "crash_resume"))
+    st = out["stats"]
+    if out["lut5_filter"] <= 0:
+        raise AssertionError(f"8a: the resumed iteration launched no K3: {out}")
+    log(f"phase 8a crash_resume: crash run {wall_crash:.3f} s (exit 17, left "
+        f"{left}), resume {wall:.3f} s: K1 windows {out['pivot_window']}, K3 "
+        f"launches {out['lut5_filter']}, deadline_breaches "
+        f"{st.get('deadline_breaches', 0)}, dispatch_retries "
+        f"{st.get('dispatch_retries', 0)}, circuit_breaker_trips "
+        f"{st.get('circuit_breaker_trips', 0)}; both XML files and the journal "
+        "byte-identical to the JAX CLI's")
+    return {"lut5_filter": out["lut5_filter"], "pivot_window": out["pivot_window"],
+            "wall": wall, "wall_crash": wall_crash}
+
+
+# Phase 8b-8d: the G = 99 resume of 7d on the default route under a fault:
+# (journal golden, XML golden, extra argv, SBG_FAULTS).
+G99_FAULTED = {
+    "g99_hang1": ("g99_native",
+                  os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml"),
+                  HANG_TIMEOUT, "dispatch.sweep:hang@1"),
+    "g99_hang_all": ("g99_hang_all", None, HANG_TIMEOUT, "dispatch.sweep:hang@1+"),
+    "g99_devcb": ("g99_devcb", None, [], "native.devcb:raise@1"),
+}
+
+
+def phase_g99_faulted(dev, outdir: str, name: str):
+    """Phases 8b-8d: 7d's G = 99 resume on the default route with the
+    faults of G99_FAULTED[name]; the file and the journal must be the JAX
+    CLI's under the same spec.  Returns run_cli's triple."""
+    journal, golden, extra, spec = G99_FAULTED[name]
+    if golden is None:
+        d = os.path.join(JOURNAL_GOLDEN, journal)
+        golden = os.path.join(d, [n for n in os.listdir(d) if n.endswith(".xml")][0])
+    return run_cli(dev, f"phase 8 {spec} {name}", G99_ARGV, G99_BOX, golden, outdir,
+                   native=True, verbose=False, journal=journal, extra=extra,
+                   faults_spec=spec)
+
+
+def fault_line(label: str, wall: float, counts: dict, stats: dict) -> None:
+    log(f"{label}: wall {wall:.3f} s, K1 windows {counts['pivot_window']}, K3 "
+        f"launches {counts['lut5_filter']}, deadline_breaches "
+        f"{stats.get('deadline_breaches', 0)}, dispatch_retries "
+        f"{stats.get('dispatch_retries', 0)}, circuit_breaker_trips "
+        f"{stats.get('circuit_breaker_trips', 0)}, python_nodes "
+        f"{stats.get('python_nodes', 0)}, engine_devcalls "
+        f"{stats.get('engine_devcalls', 0)}")
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1324,6 +1609,29 @@ SPECTRAL_RUNS = {
     "g99_spectral": (G99_ARGV + SPECTRAL, G99_BOX,
                      os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99_spectral.xml"),
                      True),
+}
+
+# The CLI runs whose files the JAX CLI wrote for the same command, route
+# and faults: journal golden -> (the JAX CLI's argv, native route,
+# SBG_FAULTS, whether the run crashes and is resumed).  Each phase passes
+# its run_cli the argv before the S-box, ``-v -v`` where its entry has it,
+# and ``--device``/``--pivot-backend``, which the journal does not record.
+# tests/torch_journal_goldens.py writes GOLDEN/journal/<name>/ from this
+# table (the phase 8 entries' XML files too).
+JOURNAL_RUNS = {
+    "des_s1": (DES_ARGV + VV + [DES_BOX], False, None, False),
+    "g99": (G99_ARGV + VV + [G99_BOX], False, None, False),
+    "des_s1_spectral": (DES_ARGV + SPECTRAL + VV + [DES_BOX], False, None, False),
+    "g22_spectral": (G22_ARGV + SPECTRAL + VV + [G22_BOX], False, None, False),
+    "g99_spectral": (G99_ARGV + SPECTRAL + VV + [G99_BOX], False, None, False),
+    "gate_off": (GATE_ARGV + VV + [DES_BOX], False, None, False),
+    "gate_native": (GATE_ARGV + VV + [DES_BOX], True, None, False),
+    "des_l_native": (DES_ARGV + [DES_BOX], True, None, False),
+    "g99_native": (G99_ARGV + [G99_BOX], True, None, False),
+    "crash_resume": (CRASH_ARGV + [DES_BOX], False, CRASH_SPEC, True),
+    "g99_hang_all": (G99_ARGV + HANG_TIMEOUT + [G99_BOX], True,
+                     "dispatch.sweep:hang@1+", False),
+    "g99_devcb": (G99_ARGV + [G99_BOX], True, "native.devcb:raise@1", False),
 }
 
 # Each kernel: (route, source, TPU kernel replaced, home path).
@@ -1477,6 +1785,47 @@ def main() -> int:
     log(f"  7c: K3 launched {paths['des_l_native']['lut5_filter']} times on the "
         f"native route (phase 3, device route: {paths['des_s1']['lut5_filter']})")
     placement = phase_gate_placement(dev)
+
+    # Phase 8: resilience, each case a counted path.
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        crash = phase_crash_resume(dev, outdir)
+        paths["crash_resume"] = {k: 0 for k in paths["g99_native"]} | {
+            k: crash[k] for k in ("lut5_filter", "pivot_window")}
+        faulted = {}
+        for name in G99_FAULTED:
+            paths[name] = on_path(name, lambda n=name: faulted.update(
+                {n: phase_g99_faulted(dev, outdir, n)}))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    for name, (_, st, wall) in faulted.items():
+        fault_line(f"phase 8 {name}", wall, paths[name], st)
+    b, c, dd = (faulted[n][1] for n in G99_FAULTED)
+    if (b.get("deadline_breaches"), b.get("dispatch_retries"),
+            b.get("circuit_breaker_trips", 0)) != (1, 1, 0) or \
+            paths["g99_hang1"]["pivot_window"] != paths["g99_native"]["pivot_window"]:
+        raise AssertionError(f"8b: expected 1 breach, 1 retry, no trip and 7d's K1 "
+                             f"windows: {paths['g99_hang1']} {b}")
+    if (c.get("deadline_breaches"), c.get("dispatch_retries"),
+            c.get("circuit_breaker_trips")) != (3, 2, 1) or \
+            paths["g99_hang_all"]["pivot_window"] or \
+            paths["g99_hang_all"]["lut5_filter"] <= 0:
+        raise AssertionError(f"8c: expected 3 breaches, 1 trip, no K1 window and "
+                             f"K3 launches: {paths['g99_hang_all']} {c}")
+    service_lines = [ln for ln in dd["stderr"].splitlines()
+                     if "device-work service failed inside the native engine" in ln]
+    if len(service_lines) != 1 or not dd.get("python_nodes") or \
+            paths["g99_devcb"]["pivot_window"] <= 0 or dd.get("deadline_breaches"):
+        raise AssertionError(f"8d: expected one stderr line and the node on the "
+                             f"Python engine with K1 windows: {paths['g99_devcb']} "
+                             f"{dd}")
+    log(f"  8d stderr: {service_lines[0]}")
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        phase_journal_cost(dev, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
 
     kernels = []
     for name, (route, source, replaces, home) in KERNELS.items():

@@ -10,8 +10,9 @@ CUDA stream travel as ``c_void_p``, and each entry point returns
 silently.
 
 The build is keyed on a digest of the sources (a changed ``.cu`` file
-rebuilds), lands in a temporary name first and is moved into place
-atomically, so concurrent processes never load a half-written library.
+rebuilds), runs under an exclusive file lock on the build directory (so
+concurrent processes compile once), lands in a temporary name first and is
+moved into place atomically, so no process loads a half-written library.
 Nothing here runs at import time: the CPU test suite imports every module of
 the package on a machine without ``nvcc``.
 """
@@ -28,6 +29,8 @@ import tempfile
 import threading
 import time
 from typing import Optional
+
+from ._buildlock import build_lock
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -103,11 +106,18 @@ def nvcc_path() -> str:
 def build(force: bool = False) -> str:
     """Compiles the kernels (unless an up-to-date library exists) and
     returns the library path.  Raises RuntimeError with the compiler's
-    output when a source does not compile."""
+    output when a source does not compile.  Holds an exclusive lock on the
+    build directory (``_buildlock.build_lock``) from the digest check to
+    the end, so concurrent processes compile once."""
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        return _build_locked(srcs, force)
+
+
+def _build_locked(srcs, force: bool) -> str:
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = os.path.join(BUILD_DIR, LIB_NAME + ".digest")
     digest = _digest(srcs)

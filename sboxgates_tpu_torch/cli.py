@@ -28,6 +28,14 @@ tiles and give the same files.  ``--candidate-order spectral`` sweeps the
 candidate chunks and pivot tiles in Walsh-score tiers best-first (the
 Walsh-score kernel K5 on the card).  ``-c``/``-d`` convert a saved state to
 C/CUDA source or Graphviz DOT, the JAX package's text.
+
+Every search keeps the JAX CLI's crash-safe journal in its output directory
+(``search.journal.jsonl`` and ``search.journal.json``, the same bytes for
+the same command): ``--resume-run DIR`` continues a killed run, the port's
+or the JAX CLI's, to the files the uninterrupted run writes.
+``--dispatch-timeout`` arms the hung-sweep deadline (retries, then the host
+chunk stream), and ``SBG_FAULTS`` the fault sites
+(``resilience/faults.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import List, Optional
 from .core import boolfunc as bf
 from .graph.state import GATES, SAT, State
 from .graph.xmlio import StateLoadError, load_state
+from .resilience.deadline import DispatchTimeout, run_with_deadline
 from .utils.sbox import SboxError, load_sbox, num_outputs
 
 
@@ -95,7 +104,103 @@ def build_parser() -> argparse.ArgumentParser:
                         "the order is a deterministic function of the "
                         "search state (no RNG, no wall clock), so "
                         "resume stays bit-identical")
+    p.add_argument("--pipeline-depth", type=int, default=2, metavar="N",
+                   help="chunks the host chunk stream makes ahead and filter "
+                        "launches it keeps in flight (default 2; 1 = serial; "
+                        "results are bit-identical either way)")
+    p.add_argument("--resume-run", metavar="DIR", default=None,
+                   help="resume a killed search from DIR's journal (written "
+                        "by a run with --output-dir DIR, of this CLI or the "
+                        "JAX package's); the search configuration comes from "
+                        "the journal and the final files are the "
+                        "uninterrupted run's")
+    p.add_argument("--dispatch-timeout", type=float, default=None, metavar="S",
+                   help="hung-dispatch deadline of the device sweeps in "
+                        "seconds (default: SBG_DISPATCH_TIMEOUT_S or off); a "
+                        "breach retries with backoff, then the search "
+                        "degrades to the host chunk stream for the rest of "
+                        "the run")
     return p
+
+
+#: The journal's recorded configuration, the JAX CLI's keys
+#: (sboxgates_tpu/cli.py): one list drives the record and the restore.
+JOURNAL_CONFIG_KEYS = (
+    "permute",
+    "iterations",
+    "single_output",
+    "available_gates",
+    "seed",
+    "sat_metric",
+    "lut",
+    "append_not",
+    "batch_iterations",
+    "permute_sweep",
+    "serial_jobs",
+    "serial_mux",
+    "mesh",
+    "fleet",
+    "fleet_candidates",
+    "fleet_max_wave",
+    "shard_sweep",
+    "pipeline_depth",
+    "serve",
+    "serve_lanes",
+    "serve_retries",
+    "serve_timeout",
+    "chain_rounds",
+    "candidate_order",
+    "result_store",
+    "serve_port",
+    "serve_token_file",
+)
+
+#: Keys a journal of an earlier build of the same version may lack, with
+#: the value every such build ran with (the JAX CLI's table).
+JOURNAL_KEY_DEFAULTS = {
+    "fleet_candidates": 1,
+    "fleet_max_wave": 256,
+    "serve": False,
+    "serve_lanes": 4,
+    "serve_retries": 2,
+    "serve_timeout": None,
+    "chain_rounds": 0,
+    "candidate_order": "lex",
+    "result_store": None,
+    "serve_port": None,
+    "serve_token_file": None,
+}
+
+#: The JAX CLI's flags the port has not ported, with the value that CLI
+#: records when they are not given.  A journal that recorded another value
+#: is refused by --resume-run, one line naming the setting.
+UNPORTED_KEYS = {
+    "batch_iterations": False,
+    "permute_sweep": False,
+    "serial_jobs": False,
+    "serial_mux": False,
+    "mesh": False,
+    "fleet": False,
+    "fleet_candidates": 1,
+    "fleet_max_wave": 256,
+    "shard_sweep": False,
+    "serve": False,
+    "serve_lanes": 4,
+    "serve_retries": 2,
+    "serve_timeout": None,
+    "chain_rounds": 0,
+    "result_store": None,
+    "serve_port": None,
+    "serve_token_file": None,
+}
+
+#: Unported settings that change what a resumed run would do; the others
+#: (the serial mux and jobs switches, the serve and fleet tuning) are
+#: restored and have no effect in a single-process, single-file run.
+_REFUSED = (
+    "fleet", "mesh", "serve", "batch_iterations", "chain_rounds",
+    "shard_sweep", "permute_sweep", "result_store", "serve_port",
+)
 
 
 def _err(msg: str) -> int:
@@ -103,8 +208,98 @@ def _err(msg: str) -> int:
     return 1
 
 
+def _resume_config(args) -> Optional[int]:
+    """Restores the journaled configuration of ``--resume-run`` into
+    ``args`` (before validation, as the JAX CLI does); returns an exit
+    code when the run must stop, else None with ``args.journal`` set."""
+    from .resilience.journal import JOURNAL_VERSION, JournalError, SearchJournal
+
+    try:
+        journal = SearchJournal.resume(args.resume_run)
+    except JournalError as e:
+        return _err(f"Error: {e}")
+    ver = journal.records[0].get("version")
+    if ver != JOURNAL_VERSION:
+        return _err(
+            f"Error: journal in {args.resume_run} has version {ver}, "
+            f"this build reads version {JOURNAL_VERSION}; re-run the "
+            "search instead of resuming."
+        )
+    cfg = journal.config
+    args.output_dir = args.resume_run
+    try:
+        args.input = list(cfg["input"])
+        args.graph = cfg["graph"]
+        for key in JOURNAL_CONFIG_KEYS:
+            if key not in cfg and key in JOURNAL_KEY_DEFAULTS:
+                setattr(args, key, JOURNAL_KEY_DEFAULTS[key])
+                continue
+            setattr(args, key, cfg[key])
+    except KeyError as e:
+        return _err(
+            f"Error: journal in {args.resume_run} lacks the recorded "
+            f"setting {e}; it was written by an incompatible build — "
+            "re-run the search instead of resuming."
+        )
+    for key in _REFUSED:
+        if getattr(args, key) != UNPORTED_KEYS[key]:
+            return _err(
+                f"Error: journal in {args.resume_run} records {key}="
+                f"{getattr(args, key)!r}, which this port does not run; "
+                "resume it with python -m sboxgates_tpu."
+            )
+    if len(args.input) > 1:
+        return _err(
+            f"Error: journal in {args.resume_run} records several S-box "
+            "files, which this port does not run; resume it with python -m "
+            "sboxgates_tpu."
+        )
+    if journal.complete:
+        print(f"Run in {args.resume_run} is already complete; nothing to resume.")
+        return 0
+    args.journal = journal
+    return None
+
+
+def _probe_device(name: str) -> Optional[str]:
+    """The card's first touch under ``SBG_DEVICE_PROBE_TIMEOUT_S`` (default
+    60 s, 0 = no deadline): returns a one-line error, or None."""
+    import torch
+
+    from .search.context import resolve_device
+
+    def touch():
+        # A context and a round trip to the card, and no kernel: a run on
+        # the native route launches none.
+        dev = resolve_device(name)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    probe_s = float(os.environ.get("SBG_DEVICE_PROBE_TIMEOUT_S", "60"))
+    try:
+        run_with_deadline(touch, probe_s, "device probe")
+    except DispatchTimeout:
+        return (
+            f"Error: the {name} device did not answer within {probe_s:.0f}s; "
+            "pass --device cpu to run on the host, or set "
+            "SBG_DEVICE_PROBE_TIMEOUT_S to adjust or disable the probe."
+        )
+    except (RuntimeError, ValueError) as e:
+        return f"Error: {(str(e).splitlines() or ['unknown error'])[0]}"
+    return None
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    # The JAX CLI's values of the flags the port has not ported: the
+    # journal records them.
+    for key, value in UNPORTED_KEYS.items():
+        setattr(args, key, value)
+    args.journal = None
+    if args.resume_run is not None:
+        rc = _resume_config(args)
+        if rc is not None:
+            return rc
 
     # Validation mirroring parse_opt (sboxgates.c:895-986), in the JAX
     # package's order and with its messages.
@@ -118,6 +313,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _err(f"Bad output value: {args.single_output}")
     if not (0 <= args.permute <= 255):
         return _err(f"Bad permutation value: {args.permute}")
+    if args.pipeline_depth < 1:
+        return _err(f"Bad pipeline depth value: {args.pipeline_depth}")
     if args.convert_c and args.convert_dot:
         return _err("Cannot combine c and d options.")
     if args.lut and args.sat_metric:
@@ -189,6 +386,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"Error: Can't generate output bit {args.single_output}. "
             f"Target S-box only has {n_out} outputs."
         )
+    problem = _probe_device(args.device)
+    if problem is not None:
+        return _err(problem)
+
+    if args.seed is None:
+        # Materialized so the journal can reproduce the run.
+        args.seed = int.from_bytes(os.urandom(4), "little")
 
     opt = Options(
         iterations=args.iterations,
@@ -207,6 +411,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         pivot_backend=args.pivot_backend,
         candidate_order=args.candidate_order,
         native=native,
+        pipeline_depth=args.pipeline_depth,
+        dispatch_timeout_s=args.dispatch_timeout,
     )
     try:
         ctx = SearchContext(opt)
@@ -220,6 +426,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             st = load_state(args.graph)
         except (OSError, StateLoadError) as e:
             return _err(f"Error when reading state file {args.graph}: {e}")
+
+    journal = args.journal
+    if journal is None:
+        from .resilience.journal import SearchJournal
+
+        config = {key: getattr(args, key) for key in JOURNAL_CONFIG_KEYS}
+        config["input"] = [os.path.abspath(p) for p in args.input]
+        config["graph"] = (
+            os.path.abspath(args.graph) if args.graph is not None else None
+        )
+        journal = SearchJournal.start(args.output_dir, config=config)
+    if args.graph is not None:
         print(f"Loaded {args.graph}.")
 
     if args.verbose >= 1:
@@ -234,10 +452,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.single_output != -1:
         generate_graph_one_output(
-            ctx, st, targets, args.single_output, save_dir=args.output_dir
+            ctx, st, targets, args.single_output, save_dir=args.output_dir,
+            journal=journal,
         )
     else:
-        generate_graph(ctx, st, targets, save_dir=args.output_dir)
+        generate_graph(ctx, st, targets, save_dir=args.output_dir,
+                       journal=journal)
     if args.verbose >= 2:
         print("")
         print("stats: " + " ".join(

@@ -143,7 +143,10 @@ def save_state(st: State, directory: str = ".") -> str:
     from ..resilience.checkpoint import durable_write_text, with_digest
 
     path = os.path.join(directory, state_filename(st))
-    durable_write_text(path, with_digest(state_to_xml(st)))
+    durable_write_text(
+        path, with_digest(state_to_xml(st)),
+        fault_sites=("ckpt.write", "ckpt.replace"),
+    )
     return path
 
 

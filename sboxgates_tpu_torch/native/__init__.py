@@ -3,8 +3,9 @@
 The repo's C++ runtime belongs to neither Python package: this module
 builds it with the host's C++ compiler (``$CXX``, else ``g++``) into
 ``build/torch_native/libsbgt_runtime.so`` under the checkout root at first
-use, keyed on a digest of the source and the flags, through a temporary
-name moved into place atomically (concurrent processes never load a
+use, keyed on a digest of the source and the flags, under an exclusive
+file lock on the build directory (concurrent processes compile once),
+through a temporary name moved into place atomically (no process loads a
 half-written library).  Nothing is built at import time.
 
 Exposed surface (the C ABI's):
@@ -19,7 +20,9 @@ Exposed surface (the C ABI's):
   ``create_circuit`` recursion in C++; the LUT engine hands nodes that need
   device work to a Python service through :data:`ENG_DEVCB`
   (:func:`make_eng_devcb`) and resumes in place;
-- :func:`execute_circuit` — the bitslice interpreter of a gate program.
+- :func:`execute_circuit` — the bitslice interpreter of a gate program;
+- :func:`combinations_from_rank` — consecutive lexicographic
+  k-combinations from a rank (the host chunk stream's generator).
 
 Truth tables cross as ``uint64[..., 4]`` (:func:`tables32_to_64`): the same
 bytes as the host's ``uint32[..., 8]`` rows on a little-endian host.
@@ -29,15 +32,19 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import platform
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 from typing import Optional, Tuple
 
 import numpy as np
+
+from .._buildlock import build_lock
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(_PKG)
@@ -51,8 +58,41 @@ _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 
 
+_logger = logging.getLogger(__name__)
+
+# Process-wide tally of device-work-service failures behind engine bails.
+# The visibility line is a rate-limited stderr print keyed off this locked
+# counter (a warning would be shown once per process by the default filter,
+# hiding repeated degradations), as in the JAX package.
+_SERVICE_FAILURES = 0
+_SERVICE_FAIL_LOCK = threading.Lock()
+_SERVICE_FAIL_PRINT_FIRST = 5
+_SERVICE_FAIL_PRINT_EVERY = 100
+
+
 class NativeUnavailable(RuntimeError):
     """The native runtime could not be built or loaded."""
+
+
+def service_failure_count() -> int:
+    """How many native-engine calls bailed in this process because their
+    device-work service raised."""
+    return _SERVICE_FAILURES
+
+
+def _note_service_failure(exc: BaseException) -> None:
+    global _SERVICE_FAILURES
+    with _SERVICE_FAIL_LOCK:
+        _SERVICE_FAILURES += 1
+        n = _SERVICE_FAILURES
+    if n <= _SERVICE_FAIL_PRINT_FIRST or n % _SERVICE_FAIL_PRINT_EVERY == 0:
+        print(
+            f"sboxgates_tpu_torch: device-work service failed inside the "
+            f"native engine ({exc!r}); the search fell back to the Python "
+            f"engine [failure #{n} this process]",
+            file=sys.stderr,
+            flush=True,
+        )
 
 
 # Device-work continuation callback of the LUT engine (the C side's
@@ -96,12 +136,14 @@ def make_eng_devcb(service):
     gets COPIES of the engine's live tables (uint32[g, 8]), target and
     mask, and returns None on a miss or the flat hit tuple written to
     resp[1:] ([fo, fi, a..e] for a 5-LUT, [fo, fm, fi, a..g] for a 7-LUT).
-    An exception must not unwind across the C frame: it is kept in
-    ``pending["exc"]``, the callback reports failure so the engine
-    unwinds at once, and :class:`LutEngineCaller` raises it when the
-    engine call returns — a failing device launch is an error, never a
-    silent rerun."""
-    pending = {"exc": None}
+    An exception must not unwind across the C frame.  An ``Exception`` is a
+    failed service: it is kept in ``pending["service_exc"]``, the callback
+    reports failure, the engine bails, and :class:`LutEngineCaller` returns
+    its ``BAILED`` result (the caller reruns the node on the Python engine,
+    as the JAX package does).  A ``BaseException`` (KeyboardInterrupt,
+    SystemExit) also makes the engine unwind, and is raised again once the
+    engine call returns."""
+    pending = {"exc": None, "service_exc": None}
 
     def cb(
         handle, kind, tables_p, g, target_p, mask_p, inbits_p, n_inbits,
@@ -125,6 +167,13 @@ def make_eng_devcb(service):
                 resp[0] = 1
                 resp[1 : 1 + len(out)] = np.asarray(out, dtype=np.int64)
             return 0
+        except Exception as e:  # the engine bails; its caller reports it
+            pending["service_exc"] = e
+            _logger.debug(
+                "device-work service failed inside the native LUT engine",
+                exc_info=True,
+            )
+            return 1
         except BaseException as e:  # re-raised by the engine's caller
             pending["exc"] = e
             return 1
@@ -166,10 +215,16 @@ def lib_path() -> str:
 def build() -> str:
     """Compiles ``csrc/runtime.cpp`` (unless an up-to-date library exists)
     and returns the library path; raises NativeUnavailable with the
-    compiler's output on failure."""
+    compiler's output on failure.  Holds the build directory's lock
+    (``_buildlock.build_lock``) throughout."""
     if not os.path.exists(SRC_PATH):
         raise NativeUnavailable(f"source not found: {SRC_PATH}")
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        return _build_locked()
+
+
+def _build_locked() -> str:
     out = lib_path()
     stamp = out + ".digest"
     digest = _digest()
@@ -218,6 +273,8 @@ _SIGNATURES = {
     # nfeas, ranks, req1, req0
     "sbg_lut7_stage_a": ([_V, _I32, _V, _V, _V, _I32, _I64, _I32, _I32, _I32,
                           _V, _V, _V, _V], _I64),
+    # g, k, rank, count, out
+    "sbg_combinations_from_rank": ([_I32, _I32, _U64, _I64, _V], _I64),
     # req1, req0, n, solve7, idx_tab, n_idx, seed, out
     "sbg_lut7_solve_small": ([_V, _V, _I32, _I32, _V, _I32, _I32, _V], None),
     # tables, g, num_inputs, max_gates, sat_metric, max_sat_metric, metric,
@@ -431,6 +488,15 @@ def lut7_solve_small(req1, req0, solve7, idx_tab, seed) -> np.ndarray:
     return out
 
 
+def combinations_from_rank(g: int, k: int, rank: int, count: int) -> np.ndarray:
+    """Up to ``count`` consecutive lexicographic k-combinations of
+    {0..g-1} from ``rank``, as int32[written, k]."""
+    lib = _require()
+    out = np.empty((count, k), dtype=np.int32)
+    written = lib.sbg_combinations_from_rank(g, k, rank, count, out.ctypes.data)
+    return out[:written]
+
+
 def _ops_array(entries) -> np.ndarray:
     """Materialization rows of a match table's entries, int32[n, 8]:
     [num_inputs, fun1, fun2, not_a, not_b, not_c, not_out, perm], perm
@@ -502,8 +568,12 @@ class LutEngineCaller:
     ``create_circuit`` recursion in C++.  Nodes that need device work
     (pivot-sized 5-LUT space, head-solver overflow, staged 7-LUT) go to
     the service of :func:`make_eng_devcb` and the recursion resumes in
-    place.  An exception in the service is raised here once the engine
-    has unwound."""
+    place.  When the service fails the engine bails: the call returns
+    ``(BAILED, None, stats)`` and the failure is reported once on stderr
+    (:func:`_note_service_failure`).  An interrupt raised in the service
+    is raised here once the engine has unwound."""
+
+    BAILED = -2
 
     __slots__ = ("_fn", "_bufs")
 
@@ -546,6 +616,9 @@ class LutEngineCaller:
         exc, pending["exc"] = pending["exc"], None
         if exc is not None:
             raise exc
+        sexc, pending["service_exc"] = pending["service_exc"], None
+        if sexc is not None:
+            _note_service_failure(sexc)
         if n == -2:
-            raise RuntimeError("native LUT engine bailed without a service failure")
+            return self.BAILED, None, stats
         return _engine_result(n, out_gid, added, stats)

@@ -1,0 +1,145 @@
+"""Hung-dispatch deadlines with retry and backoff.
+
+A launched CUDA kernel cannot be interrupted from the host, and neither can
+a wait on its results: a wedged sweep would hang the whole search past any
+external timeout.  :func:`dispatch_with_retry` runs one blocking sweep
+resolve in an abandonable worker thread: on a breach of its budget it
+counts the breach, re-issues the sweep with exponential backoff, and after
+the retry budget raises :class:`DispatchTimeout`, so the calling driver can
+degrade to its host-fallback path (``search.lut.lut5_search``).  The
+schedule, the counters and the ``dispatch.sweep`` fault site are the JAX
+package's (``sboxgates_tpu/resilience/deadline.py``), so one spec breaches
+the same sweeps in both packages.
+
+An abandoned attempt keeps its own worker thread and result cell: its late
+result never reaches the caller, and every re-issue builds its own device
+buffers.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from .faults import fault_point
+
+logger = logging.getLogger(__name__)
+
+_bump_lock = threading.Lock()
+
+
+class DispatchTimeout(RuntimeError):
+    """A device dispatch exceeded its deadline budget (retries included)."""
+
+
+def _bump(stats, key: str, by: int = 1) -> None:
+    """Locked counter increment on ``stats`` (a dict, or None)."""
+    if stats is None:
+        return
+    with _bump_lock:
+        stats[key] = stats.get(key, 0) + by
+
+
+@dataclass
+class DeadlineConfig:
+    """Deadline policy for blocking device-sweep resolves.  ``budget_s <=
+    0`` disables the guard (the default: ``SBG_DISPATCH_TIMEOUT_S``,
+    ``Options.dispatch_timeout_s`` or ``--dispatch-timeout`` turn it on)."""
+
+    budget_s: float = 0.0
+    retries: int = 2
+    backoff_s: float = 0.25
+
+    @property
+    def enabled(self) -> bool:
+        return self.budget_s > 0
+
+
+def config_from_env() -> DeadlineConfig:
+    """SBG_DISPATCH_TIMEOUT_S / SBG_DISPATCH_RETRIES / SBG_DISPATCH_BACKOFF_S."""
+    return DeadlineConfig(
+        budget_s=float(os.environ.get("SBG_DISPATCH_TIMEOUT_S", "0")),
+        retries=max(0, int(os.environ.get("SBG_DISPATCH_RETRIES", "2"))),
+        backoff_s=float(os.environ.get("SBG_DISPATCH_BACKOFF_S", "0.25")),
+    )
+
+
+def run_with_deadline(fn: Callable, budget_s: float, label: str = ""):
+    """Runs ``fn()`` in a daemon worker, waiting at most ``budget_s``
+    seconds.  On a breach the worker is abandoned (it parks harmlessly on
+    whatever blocks it) and :class:`DispatchTimeout` is raised here."""
+    if budget_s <= 0:
+        return fn()
+    box: dict = {}
+    done = threading.Event()
+
+    def work() -> None:
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # delivered to the caller below
+            box["error"] = e
+        finally:
+            done.set()
+
+    worker = threading.Thread(target=work, name="sbg-deadline", daemon=True)
+    worker.start()
+    if not done.wait(budget_s):
+        raise DispatchTimeout(
+            f"device dispatch{f' [{label}]' if label else ''} exceeded its "
+            f"{budget_s:g}s deadline (hung kernel or device?)"
+        )
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def dispatch_with_retry(
+    fn: Callable,
+    cfg: Optional[DeadlineConfig],
+    stats: Optional[dict] = None,
+    label: str = "",
+    on_retry: Optional[Callable[[], None]] = None,
+    site: str = "dispatch.sweep",
+):
+    """One guarded device-sweep resolve: deadline, retry, backoff.
+
+    Every attempt first marks the ``dispatch.sweep`` fault site (so
+    injection works with or without a deadline), then runs ``fn`` under
+    :func:`run_with_deadline`.  A breach adds one to
+    ``stats['deadline_breaches']``; each retry adds one to
+    ``stats['dispatch_retries']``, sleeps the doubling backoff, calls
+    ``on_retry`` (re-issue the dispatch) and tries again.  After
+    ``cfg.retries`` retries the last :class:`DispatchTimeout` propagates.
+    A disabled config (or None) calls inline: no thread.
+    """
+
+    def attempt():
+        fault_point(site)
+        return fn()
+
+    if cfg is None or not cfg.enabled:
+        return attempt()
+    delay = cfg.backoff_s
+    for k in range(cfg.retries + 1):
+        try:
+            return run_with_deadline(attempt, cfg.budget_s, label)
+        except DispatchTimeout as e:
+            _bump(stats, "deadline_breaches")
+            if k == cfg.retries:
+                logger.warning(
+                    "%s; %d retr%s exhausted", e, cfg.retries,
+                    "y" if cfg.retries == 1 else "ies",
+                )
+                raise
+            _bump(stats, "dispatch_retries")
+            logger.warning("%s; retry %d/%d in %.2fs", e, k + 1, cfg.retries,
+                           delay)
+            time.sleep(delay)
+            delay *= 2
+            if on_retry is not None:
+                on_retry()
+    raise AssertionError("unreachable")

@@ -1,0 +1,208 @@
+"""Deterministic fault injection.
+
+Production code calls :func:`fault_point` at named host-side sites; when a
+site is armed, the configured action fires there — letting tests kill the
+process at chosen points and prove that checkpoints stay intact and
+``--resume-run`` reproduces the uninterrupted result bit for bit.
+
+The spec grammar, the actions, the hit counting and the site names are the
+JAX package's (``sboxgates_tpu/resilience/faults.py``), so one
+``SBG_FAULTS`` value interrupts both packages at the same point of the same
+search.  Sites the port fires:
+
+========================  =====================================================
+``ckpt.write``            mid-way through writing a checkpoint's temp file
+``ckpt.replace``          after the temp file is durable, before ``os.replace``
+``journal.append``        after a journal record reaches disk
+``search.round``          between beam-search rounds (after the round record)
+``search.node``           entering one ``create_circuit`` search node
+``prefetch.produce``      producing one chunk in the streaming prefetcher
+``dispatch.sweep``        issuing/resolving one guarded device sweep
+``native.devcb``          servicing one native-engine device-work request
+``order.score``           issuing one spectral candidate-order scoring pass
+========================  =====================================================
+
+Arming — ``SBG_FAULTS`` (read at first use) or :func:`arm`::
+
+    SBG_FAULTS="site:action[@when][,site:action[@when]...]"
+
+``action`` is ``raise`` (raise :class:`InjectedFault`), ``crash``
+(``os._exit(CRASH_EXIT_CODE)``, the uncatchable analog of SIGKILL or
+preemption) or ``hang`` (block forever: what a wedged device call looks
+like).  ``when`` selects hits of the site, counted from 1: ``N`` fires on
+exactly the Nth hit, ``N+`` on the Nth and every later one; omitted means
+``1+``.  Hit counting is per process and thread-safe; with a fixed seed
+the same spec kills the same point every run.
+
+A site name may carry a qualifier, in the JAX package's grammar:
+``@rank:N``, ``@job:ID`` or ``@tenant:NAME``.  The port runs one process
+with no jobs or tenants, so only ``@rank:0`` fires here (with a hit counter
+of its own); a site qualified otherwise parses and never fires.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+CRASH_EXIT_CODE = 17
+
+ACTIONS = ("raise", "crash", "hang")
+
+#: Sites the port fires (informational: fault_point accepts any name).
+KNOWN_SITES = (
+    "ckpt.write",
+    "ckpt.replace",
+    "journal.append",
+    "search.round",
+    "search.node",
+    "prefetch.produce",
+    "dispatch.sweep",
+    "native.devcb",
+    "order.score",
+)
+
+
+class InjectedFault(RuntimeError):
+    """Raised by an armed ``raise`` fault site."""
+
+
+@dataclass(frozen=True)
+class _Spec:
+    action: str
+    first: int       # 1-based hit ordinal the fault starts firing at
+    once: bool       # True: fire on exactly `first`; False: `first` onward
+
+    def fires(self, hit: int) -> bool:
+        return hit == self.first if self.once else hit >= self.first
+
+
+_WHEN_RE = re.compile(r"^(\d+)(\+?)$")
+_RANK_RE = re.compile(r"@rank:(\d+)$")
+_JOB_RE = re.compile(r"@job:([A-Za-z0-9_.\-]+)$")
+_TENANT_RE = re.compile(r"@tenant:([A-Za-z0-9_.\-]+)$")
+
+_lock = threading.Lock()
+_specs: Dict[str, _Spec] = {}
+_hits: Dict[str, int] = {}
+_env_loaded = False
+
+
+def parse_spec(text: str) -> Dict[str, _Spec]:
+    """Parses an ``SBG_FAULTS`` value; raises ValueError on bad syntax."""
+    out: Dict[str, _Spec] = {}
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        # rsplit: the site itself may contain ':' (the qualifier suffix).
+        fields = part.rsplit(":", 1)
+        if len(fields) != 2 or not fields[0]:
+            raise ValueError(
+                f"bad fault spec {part!r}: expected "
+                "'site[@rank:N|@job:ID|@tenant:NAME]:action[@when]'"
+            )
+        site, action = fields
+        if ":" in site and not (
+            _RANK_RE.search(site) or _JOB_RE.search(site)
+            or _TENANT_RE.search(site)
+        ):
+            raise ValueError(
+                f"bad fault site {site!r} in {part!r}: a ':' in a site "
+                "name is only valid as an '@rank:N', '@job:ID', or "
+                "'@tenant:NAME' suffix"
+            )
+        when = "1+"
+        if "@" in action:
+            action, _, when = action.partition("@")
+        if action not in ACTIONS:
+            raise ValueError(
+                f"bad fault action {action!r} in {part!r}: "
+                f"expected one of {ACTIONS}"
+            )
+        m = _WHEN_RE.match(when)
+        if m is None or int(m.group(1)) < 1:
+            raise ValueError(
+                f"bad fault trigger {when!r} in {part!r}: expected 'N' or 'N+'"
+            )
+        out[site] = _Spec(action, int(m.group(1)), once=m.group(2) != "+")
+    return out
+
+
+def _load_env() -> None:
+    global _env_loaded
+    if _env_loaded:
+        return
+    _env_loaded = True
+    text = os.environ.get("SBG_FAULTS", "")
+    if text:
+        _specs.update(parse_spec(text))
+
+
+def arm(site: str, action: str, when: str = "1+") -> None:
+    """Arms one site (pair with :func:`disarm`)."""
+    spec = parse_spec(f"{site}:{action}@{when}")
+    with _lock:
+        _load_env()
+        _specs.update(spec)
+
+
+def disarm(site: Optional[str] = None) -> None:
+    """Disarms one site (or all, the environment's spec included) and
+    resets its hit counter(s)."""
+    global _env_loaded
+    with _lock:
+        if site is None:
+            _specs.clear()
+            _hits.clear()
+            _env_loaded = True
+        else:
+            _specs.pop(site, None)
+            _hits.pop(site, None)
+
+
+def hit_count(site: str) -> int:
+    """Hits recorded so far at ``site`` (armed sites only)."""
+    with _lock:
+        return _hits.get(site, 0)
+
+
+def fault_point(site: str) -> None:
+    """Marks a named fault site; fires the armed action, if any.  Unarmed,
+    it costs a few dict lookups."""
+    if not _env_loaded and not _specs:
+        with _lock:
+            _load_env()
+    # This process is rank 0: the only qualified name that can fire here.
+    names = (site, f"{site}@rank:0")
+    if all(_specs.get(n) is None for n in names):
+        return
+    spec = None
+    hit = 0
+    with _lock:
+        # Re-read under the lock: a concurrent disarm() may have won.
+        for n in names:
+            s = _specs.get(n)
+            if s is None:
+                continue
+            h = _hits.get(n, 0) + 1
+            _hits[n] = h
+            if spec is None and s.fires(h):
+                spec, hit, site = s, h, n
+    if spec is None:
+        return
+    if spec.action == "raise":
+        raise InjectedFault(f"injected fault at {site} (hit {hit})")
+    if spec.action == "crash":
+        # The uncatchable death: no atexit, no finally.  (The JAX package
+        # writes a flight-recorder dump first; the port has no recorder.)
+        print(f"[sbg-fault] crash at {site} (hit {hit})", flush=True)
+        os._exit(CRASH_EXIT_CODE)
+    # hang: block forever in small sleeps (a daemon worker parked here is
+    # abandonable; a caller under a deadline times out).
+    while True:
+        time.sleep(0.05)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import hashlib
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from ..core import boolfunc as bf
 from ..graph.state import GATES, State
 from ..ops import combinatorics as comb
 from ..ops import sweeps
+from ..resilience import deadline as _deadline
 
 # Gate-count buckets: live tables are zero-padded up to the next bucket.  The
 # pair sweep's index space is the bucket's pair grid, so the bucket shapes
@@ -105,6 +106,14 @@ class Options:
     # Off = every node on the device.  Falls back to the device, with a
     # warning, when the runtime does not build.
     native: bool = True
+    # Chunks the host chunk stream (the fallback of the big 5/7-LUT sweeps)
+    # produces ahead, and filter launches it keeps in flight; 1 = serial.
+    # Identical results at every depth.
+    pipeline_depth: int = 2
+    # Hung-dispatch deadline of the guarded sweeps, in seconds (None = the
+    # SBG_DISPATCH_TIMEOUT_S default, 0 = off): a breach retries with
+    # backoff, then the driver degrades to the host chunk stream.
+    dispatch_timeout_s: Optional[float] = None
 
 
 @dataclass(frozen=True)
@@ -209,10 +218,22 @@ def resolve_device(name: str) -> torch.device:
 
 
 class Stats(dict):
-    """Run counters (candidates examined per sweep kind, nodes, ...)."""
+    """Run counters (candidates examined per sweep kind, nodes, deadline
+    breaches, ...)."""
 
     def inc(self, key: str, n: int = 1) -> None:
         self[key] = self.get(key, 0) + int(n)
+
+    def put(self, key: str, value: int) -> None:
+        """Sets one counter (a degrading driver backs out the candidates of
+        its abandoned sweep)."""
+        self[key] = int(value)
+
+    def restore(self, snapshot: dict) -> None:
+        """Replaces every counter with ``snapshot``'s (a bailed engine call
+        drops what its serviced requests counted)."""
+        self.clear()
+        self.update(snapshot)
 
     def __missing__(self, key):
         return 0
@@ -262,11 +283,82 @@ class SearchContext:
         self._lut5_tabs = None
         self._lut7_tabs = None
         self.stats = Stats()
+        # Deadline policy of the guarded sweeps (guarded_dispatch).
+        self.deadline_cfg = _deadline.config_from_env()
+        if opt.dispatch_timeout_s is not None:
+            self.deadline_cfg.budget_s = float(opt.dispatch_timeout_s)
+        # Circuit breaker: set, for the rest of the run, the first time a
+        # guarded sweep exhausts its retry schedule.  Later LUT sweeps then
+        # go straight to the host chunk stream instead of re-probing a
+        # known-dead device for budget * (retries + 1) seconds each.
+        self.device_degraded = False
 
     # -- helpers ----------------------------------------------------------
 
     def _match_table(self, table_np: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(table_np.astype(np.int64)).to(self.device)
+
+    def rng_snapshot(self) -> dict:
+        """The host PRNG position as JSON-able data: the numpy bit-generator
+        state and the unconsumed tail of the 256-seed buffer (restoring the
+        generator alone would shift every later :meth:`next_seed` draw).
+        The journal's resume payload, the JAX package's format."""
+        buf, pos = self._seed_buf
+        return {
+            "bg": self.rng.bit_generator.state,
+            "seed_buf": [int(x) for x in buf[pos:]],
+        }
+
+    def rng_restore(self, snap: dict) -> None:
+        """Inverse of :meth:`rng_snapshot`: every later draw matches the run
+        the snapshot came from."""
+        self.rng.bit_generator.state = snap["bg"]
+        self._seed_buf = (np.asarray(snap["seed_buf"], dtype=np.int64), 0)
+
+    def guarded_dispatch(self, fn, label: str):
+        """Runs one blocking device sweep under the hung-dispatch deadline
+        (:func:`resilience.deadline.dispatch_with_retry`): breach, retry
+        with backoff, then :class:`DispatchTimeout` for the caller to
+        degrade on.  Also the ``dispatch.sweep`` fault site, one hit per
+        call (and per retry).  ``fn`` issues and resolves the sweep, so a
+        retry re-issues it with buffers of its own.  Inline when no budget
+        is set."""
+        return _deadline.dispatch_with_retry(
+            fn, self.deadline_cfg, stats=self.stats, label=label
+        )
+
+    def host_sync_deadline(self, fn, label: str):
+        """Deadline-only guard (no retry, no fault site) of the host chunk
+        stream's own device work: the fallback is the degradation target,
+        so it never re-enters the retry and degrade ladder, but a dead
+        device must not hang it forever either.  One window of the whole
+        retry schedule's budget; a breach raises :class:`DispatchTimeout`
+        and the search fails loudly."""
+        cfg = self.deadline_cfg
+        if not cfg.enabled:
+            return fn()
+        return _deadline.run_with_deadline(
+            fn, cfg.budget_s * (cfg.retries + 1), label
+        )
+
+    def trip_device_breaker(self) -> None:
+        """Flips the device circuit breaker for the rest of the run: later
+        LUT sweeps go straight to the host chunk stream."""
+        self.device_degraded = True
+        self.stats.inc("circuit_breaker_trips")
+
+    @property
+    def pipeline_depth(self) -> int:
+        """Prefetch and in-flight depth of the host chunk stream
+        (``Options.pipeline_depth``, at least 1)."""
+        return max(1, int(self.opt.pipeline_depth))
+
+    def host_prefetcher(self, stream, chunk_size: int, exclude):
+        """A :class:`ops.combinatorics.ChunkPrefetcher` of this context's
+        depth."""
+        return comb.ChunkPrefetcher(
+            stream, chunk_size, exclude, depth=self.pipeline_depth
+        )
 
     def next_seed(self) -> int:
         """Per-dispatch kernel seed, drawn from the context PRNG in blocks of
@@ -380,15 +472,19 @@ class SearchContext:
     ):
         """One stream sweeping combination ranks [start, total) to the first
         chunk with a feasible k-tuple; ``stop`` bounds it to [start, stop)
-        (the best-first drivers sweep one tier segment at a time).  Returns
-        (found, chunk_start, feasible, req1, req0, examined, chunk)."""
+        (the best-first drivers sweep one tier segment at a time).  One
+        :meth:`guarded_dispatch`.  Returns (found, chunk_start, feasible,
+        req1, req0, examined, chunk)."""
         if prebuilt is None:
             prebuilt = self.stream_args(st, target, mask, inbits, k)
         base_args, total, chunk = prebuilt
         if stop is not None:
             total = min(int(stop), total)
-        verdict, feas, r1, r0 = sweeps.feasible_stream(
-            *base_args, start, total, k=k, chunk=chunk
+        verdict, feas, r1, r0 = self.guarded_dispatch(
+            lambda: sweeps.feasible_stream(
+                *base_args, start, total, k=k, chunk=chunk
+            ),
+            f"feasible_stream k={k}",
         )
         found, cstart, examined = (int(x) for x in verdict)
         return bool(found), cstart, feas, r1, r0, examined, chunk

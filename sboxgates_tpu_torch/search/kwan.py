@@ -13,7 +13,9 @@ native engine (csrc ``sbg_gate_engine`` / ``sbg_lut_engine``); Python only
 replays the adopted gate additions and re-verifies them.  The LUT engine
 hands the nodes that need device work (pivot-sized 5-LUT space, head-solver
 overflow, staged 7-LUT) to :func:`_lut_engine_service`, which runs the same
-search drivers on the device, and resumes in place.
+search drivers on the device, and resumes in place.  When the service fails
+the engine bails, the counters its requests added are dropped, and the node
+runs on the Python engine on the same device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..graph.state import (
     check_num_gates_possible,
     get_sat_metric,
 )
+from ..resilience.faults import fault_point
 from .context import SearchContext
 from .lut import lut_search_from_head
 
@@ -40,13 +43,19 @@ def create_circuit(
     """Returns the id of a gate realizing ``target`` under ``mask``, adding
     gates to ``st`` as needed; NO_GATE on failure.  Step numbers reference
     Kwan's paper, as in the reference implementation."""
+    # Fault site: one hit per search node entered.
+    fault_point("search.node")
     opt = ctx.opt
     metric = opt.metric
 
     if ctx.uses_native_engine(st):
-        if opt.lut_graph:
-            return _native_lut_engine_search(ctx, st, target, mask, inbits)
-        return _native_engine_search(ctx, st, target, mask, inbits)
+        if not opt.lut_graph:
+            return _native_engine_search(ctx, st, target, mask, inbits)
+        ret = _native_lut_engine_search(ctx, st, target, mask, inbits)
+        if ret is not None:
+            return ret
+        # The engine's device-work service failed: the Python engine runs
+        # this node (its own sweeps on the same device).
     ctx.stats.inc("python_nodes")
 
     # Steps 1-4 for one seed; budget gates are applied host-side in the
@@ -188,6 +197,7 @@ def _lut_engine_service(ctx: SearchContext):
     from . import lut as lutmod
 
     def service(kind, tables, g, target, mask, inbits, arg0, rng, slot):
+        fault_point("native.devcb")
         st = _EngineView(tables, g)
         if kind == 1:  # pivot-sized space: the full 5-LUT search
             res = lutmod.lut5_search(ctx, st, target, mask, inbits)
@@ -254,17 +264,24 @@ def _native_engine_search(
 
 def _native_lut_engine_search(
     ctx: SearchContext, st: State, target, mask, inbits: List[int]
-) -> int:
+):
     """The LUT-mode recursion in the native engine, its device-work nodes
-    serviced by :func:`_lut_engine_service`.  An exception in the service
-    propagates once the engine has unwound."""
+    serviced by :func:`_lut_engine_service`.  Returns the gate id (or
+    NO_GATE), or None when the service failed and the engine bailed: the
+    counters are then put back as before the call (requests serviced
+    before the failure counted into ``ctx.stats``), and the caller reruns
+    the node."""
     from .. import native
 
     if ctx.lut_engine_devcb is None:
         ctx.lut_engine_devcb = native.make_eng_devcb(_lut_engine_service(ctx))
+    stats_snapshot = dict(ctx.stats)
     out_gid, added, stats = ctx.lut_engine_caller()(
         *_engine_args(ctx, st, target, mask, inbits), devcb=ctx.lut_engine_devcb,
     )
+    if added is None:  # bailed: the device-work service failed
+        ctx.stats.restore(stats_snapshot)
+        return None
     return _engine_replay(ctx, st, target, mask, out_gid, added, stats)
 
 

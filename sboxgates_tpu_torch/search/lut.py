@@ -10,10 +10,24 @@ verdicts and decodes the chosen gates and functions.
 Every driver here makes the same sweep calls, and draws the same seeds and
 host random numbers in the same order, as the JAX package's
 ``search/lut.py`` on its single-device path.
+
+Resilience, as in that package: each blocking sweep the JAX package guards
+runs under ``ctx.guarded_dispatch`` (one ``dispatch.sweep`` fault-site hit
+per call, a deadline with retries when one is set), its seed drawn outside
+the retried call.  A sweep that exhausts its retries raises
+:class:`DispatchTimeout`; the 5-LUT search, the overflow resume and the
+7-LUT stage A then trip the context's circuit breaker and run the host
+chunk stream (:func:`_host_feasible_chunks`: host-made chunks through the
+stage-A filter, K3 for 5-tuples), which finds the same first hit in rank
+order.  ``SBG_DEVICE_ENUM=0`` takes that stream from the start.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+from collections import deque
+from contextlib import closing
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -22,6 +36,8 @@ import torch
 from ..graph.state import NO_GATE, State, check_num_gates_possible
 from ..ops import combinatorics as comb
 from ..ops import pivot_tile, spectral, sweeps
+from ..resilience.deadline import DispatchTimeout
+from ..resilience.faults import fault_point
 from .context import (
     LUT5_CHUNK,
     LUT5_SOLVE_CHUNK,
@@ -36,6 +52,8 @@ from .context import (
     lut_head_has7,
     pick_chunk,
 )
+
+logger = logging.getLogger(__name__)
 
 
 def _unpack32(word: int) -> np.ndarray:
@@ -78,7 +96,11 @@ def lut3_search(ctx: SearchContext, st: State, target, mask, inbits) -> int:
         return NO_GATE
     del inbits
     args, total, chunk = ctx.stream_args(st, target, mask, [], 3)
-    v = sweeps.lut3_stream(*args, 0, total, ctx.next_seed(), chunk=chunk)
+    seed = ctx.next_seed()
+    v = ctx.guarded_dispatch(
+        lambda: sweeps.lut3_stream(*args, 0, total, seed, chunk=chunk),
+        "lut3.stream",
+    )
     ctx.stats.inc("lut3_candidates", int(v[4]))
     if not v[0]:
         return NO_GATE
@@ -122,7 +144,8 @@ def _solve_lut5_rows(
 ) -> Optional[dict]:
     """Runs the packed-cell decomposition solver over feasible tuples (in
     sub-chunks padded with all-ones rows, which conflict in every cell) and
-    decodes the first hit.  ``req1``/``req0`` are uint32 arrays."""
+    decodes the first hit.  ``req1``/``req0`` are uint32 arrays.  Each
+    solve runs under ``ctx.host_sync_deadline``."""
     jw, jm = ctx.lut5_tabs()
     for lo in range(0, len(combos), LUT5_SOLVE_CHUNK):
         hi = min(lo + LUT5_SOLVE_CHUNK, len(combos))
@@ -130,7 +153,13 @@ def _solve_lut5_rows(
         p1, _ = comb.pad_rows(req1[lo:hi], scs, fill=0xFFFFFFFF)
         p0, _ = comb.pad_rows(req0[lo:hi], scs, fill=0xFFFFFFFF)
         ctx.stats.inc("lut5_solved", hi - lo)
-        v = sweeps.lut5_solve(ctx.words(p1), ctx.words(p0), jw, jm, ctx.next_seed())
+        seed = ctx.next_seed()
+        v = ctx.host_sync_deadline(
+            lambda a=p1, b=p0: sweeps.lut5_solve(
+                ctx.words(a), ctx.words(b), jw, jm, seed
+            ),
+            "lut5.solve",
+        )
         if not v[0]:
             continue
         t = lo + int(v[1])
@@ -269,16 +298,23 @@ def _lut5_search_pivot(
     # the space).  One stream (and one seed) per segment window.
     segments = None
     if ctx.opt.candidate_order == "spectral" and t_real > 1:
-        segments = _order_tile_segments(ctx, args[0], target, mask, descs, t_real)
+        segments = _order_tile_segments(
+            ctx, args[0], target, mask, descs, t_real, "lut5.pivot"
+        )
     ordered = segments is not None
     if not ordered:
         segments = [(0, t_real, 0)]
     for seg_lo, seg_hi, tier in segments:
         start_t = seg_lo
         while start_t < seg_hi:
-            v = sweeps.lut5_pivot_stream(
-                *args, start_t, seg_hi, jw, jm, ctx.next_seed(), tl=tl, th=th,
-                backend=backend,
+            # One guarded call (one dispatch.sweep hit) per stream, however
+            # many windows it launches: the JAX package's one resolve.
+            seed = ctx.next_seed()
+            v = ctx.guarded_dispatch(
+                lambda s=start_t, hi=seg_hi: sweeps.lut5_pivot_stream(
+                    *args, s, hi, jw, jm, seed, tl=tl, th=th, backend=backend,
+                ),
+                "lut5.pivot",
             )
             if ordered:
                 ctx.stats.inc("order_tier_dispatches")
@@ -312,15 +348,30 @@ def lut5_search(ctx: SearchContext, st: State, target, mask, inbits) -> Optional
     """5-LUT search: LUT(LUT(a,b,c), d, e) realizing the target
     (reference: search_5lut, lut.c:116-249).  Returns {func_outer,
     func_inner, gates: (a,b,c,d,e)} or None.  Large spaces take the
-    pivot-structured sweep."""
+    pivot-structured sweep.
+
+    A device sweep whose retries all breach the deadline trips the circuit
+    breaker and degrades to :func:`_lut5_search_host`, which sweeps the same
+    space in rank order; with the breaker tripped, the search goes there
+    directly."""
     g = st.num_gates
     if g < 5:
         return None
-    if comb.n_choose_k(g, 5) < PIVOT_MIN_TOTAL and not sweeps.device_rank_limit(g, 5):
+    if ctx.device_degraded or (
+        comb.n_choose_k(g, 5) < PIVOT_MIN_TOTAL
+        and not sweeps.device_rank_limit(g, 5)
+    ):
         return _lut5_search_host(ctx, st, target, mask, inbits)
-    if comb.n_choose_k(g, 5) >= PIVOT_MIN_TOTAL:
-        return _lut5_search_pivot(ctx, st, target, mask, inbits)
-    return _lut5_stream_loop(ctx, st, target, mask, inbits, 0)
+    try:
+        if comb.n_choose_k(g, 5) >= PIVOT_MIN_TOTAL:
+            return _lut5_search_pivot(ctx, st, target, mask, inbits)
+        return _lut5_stream_loop(ctx, st, target, mask, inbits, 0)
+    except DispatchTimeout as e:
+        logger.warning(
+            "%s; degrading the 5-LUT sweep to the host-fallback driver", e
+        )
+        ctx.trip_device_breaker()
+        return _lut5_search_host(ctx, st, target, mask, inbits)
 
 
 def _lut5_stream_loop(ctx, st, target, mask, inbits, start) -> Optional[dict]:
@@ -338,15 +389,19 @@ def _lut5_stream_loop(ctx, st, target, mask, inbits, start) -> Optional[dict]:
     jw, jm = ctx.lut5_tabs()
     segments = None
     if start == 0:
-        segments = _order_segments(ctx, 5, (args, total, chunk))
+        segments = _order_segments(ctx, 5, (args, total, chunk), "lut5.stream")
     ordered = segments is not None
     if not ordered:
         segments = [(start, total, 0)]
     for seg_lo, seg_hi, tier in segments:
         start = seg_lo
         while start < seg_hi:
-            v = sweeps.lut5_stream(
-                *args, start, seg_hi, jw, jm, ctx.next_seed(), chunk=chunk
+            seed = ctx.next_seed()
+            v = ctx.guarded_dispatch(
+                lambda s=start, hi=seg_hi: sweeps.lut5_stream(
+                    *args, s, hi, jw, jm, seed, chunk=chunk
+                ),
+                "lut5.stream",
             )
             if ordered:
                 ctx.stats.inc("order_tier_dispatches")
@@ -410,19 +465,55 @@ def lut5_resume_overflow(
 ) -> Optional[dict]:
     """Resume a 5-LUT search after a fused-head solver overflow at chunk
     rank ``cstart``: re-drive that chunk, then resume the fused stream
-    after it."""
-    res = _lut5_chunk_two_phase(ctx, st, target, mask, inbits, cstart)
-    if res is None:
-        chunk = pick_chunk(comb.n_choose_k(st.num_gates, 5), STREAM_CHUNK[5])
-        res = _lut5_stream_loop(ctx, st, target, mask, inbits, cstart + chunk)
+    after it.  Degrades like :func:`lut5_search`, to the host chunk stream
+    over the whole space (its prefix holds no hit, so the first hit is the
+    same)."""
+    if ctx.device_degraded:
+        return _lut5_search_host(ctx, st, target, mask, inbits)
+    try:
+        res = _lut5_chunk_two_phase(ctx, st, target, mask, inbits, cstart)
+        if res is None:
+            chunk = pick_chunk(comb.n_choose_k(st.num_gates, 5), STREAM_CHUNK[5])
+            res = _lut5_stream_loop(ctx, st, target, mask, inbits, cstart + chunk)
+    except DispatchTimeout as e:
+        logger.warning(
+            "%s; degrading the overflow-resume 5-LUT sweep to the "
+            "host-fallback driver", e,
+        )
+        ctx.trip_device_breaker()
+        res = _lut5_search_host(ctx, st, target, mask, inbits)
     return res
 
 
+def _device_enum_enabled() -> bool:
+    """``SBG_DEVICE_ENUM=0`` sends the big-space streams to the host chunk
+    stream even on a healthy device (the JAX package's lever)."""
+    return os.environ.get("SBG_DEVICE_ENUM", "1") != "0"
+
+
+def _feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits, k: int,
+                     chunk_cap: int, stat_key: str, phase: str):
+    """Feasibility-chunk stream of the spaces beyond int32 rank arithmetic
+    (and of every 5/7-LUT sweep once the breaker tripped): the device's
+    64-bit stream (:func:`_wide_feasible_chunks`), or the host chunk stream
+    (:func:`_host_feasible_chunks`) with the breaker tripped or
+    ``SBG_DEVICE_ENUM=0``.  Both yield ``(combos_fn, feasible, req1, req0)``
+    per feasible chunk in rank order.  The device stream charges ranks
+    examined, the host stream the rows left after the exclusions."""
+    if not ctx.device_degraded and _device_enum_enabled():
+        return _wide_feasible_chunks(
+            ctx, st, target, mask, inbits, k, chunk_cap, stat_key, phase
+        )
+    return _host_feasible_chunks(
+        ctx, st, target, mask, inbits, k, chunk_cap, stat_key, phase
+    )
+
+
 def _wide_feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits, k: int,
-                          chunk_cap: int, stat_key: str):
+                          chunk_cap: int, stat_key: str, phase: str):
     """Feasibility stream for spaces beyond int32 rank arithmetic: one
-    :func:`sweeps.feasible_stream_wide` sweep from the resume point to the
-    next feasible chunk, unranking on the device.  Yields
+    guarded :func:`sweeps.feasible_stream_wide` sweep from the resume point
+    to the next feasible chunk, unranking on the device.  Yields
     ``(combos_fn, feasible, req1, req0)`` per feasible chunk in rank order;
     ``combos_fn(rows)`` decodes just the hit rows."""
     g = st.num_gates
@@ -435,8 +526,12 @@ def _wide_feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits, k
     jexcl = torch.from_numpy(ctx.excl_array(inbits)).to(ctx.device)
     start = 0
     while start < total:
-        v, feas, r1, r0 = sweeps.feasible_stream_wide(
-            tables, ctx.binom_wide, g, jt, jm, jexcl, start, total, k=k, chunk=chunk
+        v, feas, r1, r0 = ctx.guarded_dispatch(
+            lambda s=start: sweeps.feasible_stream_wide(
+                tables, ctx.binom_wide, g, jt, jm, jexcl, s, total, k=k,
+                chunk=chunk,
+            ),
+            f"{phase}.wide",
         )
         found = bool(v[0])
         cstart = int(np.uint32(v[1])) | (int(np.uint32(v[2])) << 32)
@@ -454,21 +549,88 @@ def _wide_feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits, k
         start = cstart + chunk
 
 
+def _host_feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits,
+                          k: int, chunk_cap: int, stat_key: str, phase: str):
+    """The host chunk stream: a :class:`comb.ChunkPrefetcher` makes the
+    chunks on the host (the native runtime's generator, the exclusions,
+    padding) up to ``ctx.pipeline_depth`` ahead, and as many stage-A filter
+    launches stay in flight on the device (:func:`sweeps.lut_filter`: the
+    K3 kernel for 5-tuples).  Each chunk's verdict is one any-feasible
+    scalar, read under ``ctx.host_sync_deadline``: this is the degradation
+    target, so a dead device fails loudly here and never re-enters the
+    retry ladder.  Yields ``(combos_fn, feasible, req1, req0)`` for the
+    feasible chunks in rank order; the candidates of each chunk consumed
+    (rows after the exclusions) are charged to ``stat_key``, so a driver
+    that stops early counts what the serial loop would."""
+    g = st.num_gates
+    tables = ctx.device_tables(st)
+    jt, jm = ctx.words(target), ctx.words(mask)
+    excl = [b for b in inbits if b >= 0]
+    stream = comb.CombinationStream(g, k)
+    csize = pick_chunk(stream.total, chunk_cap)
+    depth = ctx.pipeline_depth
+    rows = torch.arange(csize, device=ctx.device)
+    pin = ctx.device.type == "cuda"
+    with ctx.host_prefetcher(stream, csize, excl) as pf:
+        inflight: deque = deque()
+        exhausted = False
+        while True:
+            while not exhausted and len(inflight) < depth:
+                item = pf.get()
+                if item is None:
+                    exhausted = True
+                    break
+                padded, nvalid = item
+                host = torch.from_numpy(padded)
+                if pin:
+                    host = host.pin_memory()
+                combos = host.to(ctx.device, non_blocking=True)
+                feas, req1, req0 = sweeps.lut_filter(
+                    tables, combos, rows < nvalid, jt, jm
+                )
+                inflight.append((padded, nvalid, feas.any(), feas, req1, req0))
+            if not inflight:
+                return
+            padded, nvalid, hit, feas, req1, req0 = inflight.popleft()
+            ctx.stats.inc(stat_key, nvalid)
+            if not ctx.host_sync_deadline(lambda h=hit: bool(h), phase):
+                continue
+            yield (lambda r, p=padded: p[r]), feas.cpu().numpy(), req1, req0
+
+
 def _lut5_search_host(ctx: SearchContext, st: State, target, mask, inbits) -> Optional[dict]:
-    """Big-space 5-LUT driver (beyond int32 rank arithmetic): the
-    device-resident 64-bit enumeration."""
+    """Big-space 5-LUT driver: the device's 64-bit stream, or the host
+    chunk stream (:func:`_feasible_chunks` routes).  Chunks resolve in rank
+    order, so the first hit is the same on either route and at every
+    pipeline depth.  A deadline breach on the device route trips the
+    breaker and reruns the search through the host chunk stream."""
     splits, w_tab, m_tab = sweeps.lut5_split_tables()
-    for combos_fn, feas, req1p, req0p in _wide_feasible_chunks(
-        ctx, st, target, mask, inbits, 5, LUT5_CHUNK, "lut5_candidates"
-    ):
-        fidx = np.nonzero(feas)[0]
-        res = _solve_lut5_rows(
-            ctx, st, combos_fn(fidx), sweeps.to_u32(req1p)[fidx],
-            sweeps.to_u32(req0p)[fidx], splits, w_tab, m_tab,
+    cand_before = ctx.stats["lut5_candidates"]
+    try:
+        chunks = _feasible_chunks(
+            ctx, st, target, mask, inbits, 5, LUT5_CHUNK, "lut5_candidates",
+            "lut5.host_stream",
         )
-        if res is not None:
-            return res
-    return None
+        with closing(chunks):
+            for combos_fn, feas, req1p, req0p in chunks:
+                fidx = np.nonzero(feas)[0]
+                res = _solve_lut5_rows(
+                    ctx, st, combos_fn(fidx), sweeps.to_u32(req1p)[fidx],
+                    sweeps.to_u32(req0p)[fidx], splits, w_tab, m_tab,
+                )
+                if res is not None:
+                    return res
+        return None
+    except DispatchTimeout as e:
+        if ctx.device_degraded:
+            raise  # already on the host stream: fail loudly
+        logger.warning(
+            "%s; degrading the big-space 5-LUT enumeration to the host "
+            "chunk stream", e,
+        )
+        ctx.stats.put("lut5_candidates", cand_before)
+        ctx.trip_device_breaker()
+        return _lut5_search_host(ctx, st, target, mask, inbits)
 
 
 # -------------------------------------------------------------------------
@@ -496,11 +658,12 @@ def _use_spectral(ctx: SearchContext, total: int, chunk: int) -> bool:
     )
 
 
-def _order_segments(ctx, k, prebuilt):
+def _order_segments(ctx, k, prebuilt, phase):
     """Best-first rank segments ``[(lo_rank, hi_rank, tier), ...]`` of a
     chunked stream, partitioning [0, total) in chunk-aligned ranges, or
-    None when the stream keeps lexicographic order.  One
-    ``spectral_score_stream`` pass scores every rank chunk."""
+    None when the stream keeps lexicographic order.  One guarded
+    ``spectral_score_stream`` pass (the ``order.score`` fault site) scores
+    every rank chunk."""
     args, total, chunk = prebuilt
     if not _use_spectral(ctx, total, chunk):
         return None
@@ -508,23 +671,33 @@ def _order_segments(ctx, k, prebuilt):
     n_pad = 8
     while n_pad < n_chunks:
         n_pad *= 2
-    scores = sweeps.spectral_score_stream(
-        *args, total, k=k, chunk=chunk, n_chunks=n_pad
-    ).cpu().numpy()
+
+    def attempt():
+        fault_point("order.score")
+        return sweeps.spectral_score_stream(
+            *args, total, k=k, chunk=chunk, n_chunks=n_pad
+        ).cpu().numpy()
+
+    scores = ctx.guarded_dispatch(attempt, f"{phase}.order")
     return [
         (lo * chunk, min(hi * chunk, total), tier)
         for lo, hi, tier in comb.tier_segments(scores, n_chunks, ORDER_TIERS)
     ]
 
 
-def _order_tile_segments(ctx, dev_tables, target, mask, descs, t_real):
+def _order_tile_segments(ctx, dev_tables, target, mask, descs, t_real, phase):
     """Pivot-path best-first ordering: every tile keys on its pivot gate
-    ``descs[:, 0]``, so one gate-score pass (kernel K5 on the card) tiers
-    the tiles.  Returns ``[(lo_tile, hi_tile, tier), ...]`` partitioning
-    [0, t_real)."""
-    gscores = sweeps.spectral_gate_scores(
-        dev_tables, ctx.words(target), ctx.words(mask)
-    ).cpu().numpy()
+    ``descs[:, 0]``, so one guarded gate-score pass (kernel K5 on the card,
+    the ``order.score`` fault site) tiers the tiles.  Returns
+    ``[(lo_tile, hi_tile, tier), ...]`` partitioning [0, t_real)."""
+
+    def attempt():
+        fault_point("order.score")
+        return sweeps.spectral_gate_scores(
+            dev_tables, ctx.words(target), ctx.words(mask)
+        ).cpu().numpy()
+
+    gscores = ctx.guarded_dispatch(attempt, f"{phase}.order")
     tile_scores = gscores[descs[:t_real, 0]]
     return comb.tier_segments(tile_scores, t_real, ORDER_TIERS)
 
@@ -537,55 +710,43 @@ def _order_tile_segments(ctx, dev_tables, target, mask, descs, t_real):
 def _lut7_collect_hits(ctx: SearchContext, st: State, target, mask, inbits):
     """Stage A: stream the C(G,7) space through the feasibility filter,
     collecting up to LUT7_CAP feasible tuples in rank order (reference:
-    lut.c:290-327).  Returns (combos, req1 [n, 4], req0 [n, 4]) uint32."""
+    lut.c:290-327).  Returns (combos, req1 [n, 4], req0 [n, 4]) uint32.
+
+    A device stream that exhausts its deadline retries trips the breaker,
+    and collection restarts from rank 0 on the host chunk stream (a device
+    prefix plus a host tail could reorder hits), its candidate count
+    backed out."""
     g = st.num_gates
-    hit_combos: List[np.ndarray] = []
-    hit_req1: List[np.ndarray] = []
-    hit_req0: List[np.ndarray] = []
-    nhits = 0
-    if sweeps.device_rank_limit(g, 7):
-        # Under candidate_order="spectral" the windows walk the score-tier
-        # segments best-first; run to exhaustion they collect the lex hit
-        # set, and a binding LUT7_CAP keeps the best-scored hits.
-        total = comb.n_choose_k(g, 7)
-        prebuilt = ctx.stream_args(st, target, mask, inbits, 7)
-        segments = _order_segments(ctx, 7, prebuilt)
-        ordered = segments is not None
-        if not ordered:
-            segments = [(0, total, 0)]
-        for seg_lo, seg_hi, tier in segments:
-            start = seg_lo
-            while start < seg_hi and nhits < LUT7_CAP:
-                found, cstart, feas, r1, r0, examined, chunk = ctx.feasible_stream_driver(
-                    st, target, mask, inbits, k=7, start=start, prebuilt=prebuilt,
-                    stop=seg_hi,
-                )
-                ctx.stats.inc("lut7_candidates", examined)
-                if ordered:
-                    ctx.stats.inc("order_tier_dispatches")
-                if not found:
-                    break  # segment exhausted; on to the next tier segment
-                if ordered and nhits == 0:
-                    ctx.stats.inc("order_first_hit_tier", tier)
-                rows = np.nonzero(feas.cpu().numpy())[0]
-                hit_combos.append(np.stack(
-                    [comb.unrank_combination(cstart + int(r), g, 7) for r in rows]
-                ))
-                hit_req1.append(sweeps.to_u32(r1)[rows])
-                hit_req0.append(sweeps.to_u32(r0)[rows])
-                nhits += len(rows)
-                start = cstart + chunk
-    else:
-        for combos_fn, feas, req1p, req0p in _wide_feasible_chunks(
-            ctx, st, target, mask, inbits, 7, LUT7_CHUNK, "lut7_candidates"
-        ):
-            fidx = np.nonzero(feas)[0]
-            hit_combos.append(combos_fn(fidx))
-            hit_req1.append(sweeps.to_u32(req1p)[fidx])
-            hit_req0.append(sweeps.to_u32(req0p)[fidx])
-            nhits += len(fidx)
-            if nhits >= LUT7_CAP:
-                break
+    use_device_stream = (
+        sweeps.device_rank_limit(g, 7) and not ctx.device_degraded
+    )
+    phase = "lut7.stageA"
+    hits = ([], [], [], 0)
+    if use_device_stream:
+        cand_before = ctx.stats["lut7_candidates"]
+        try:
+            hits = _lut7_device_stage_a(ctx, st, target, mask, inbits, phase)
+        except DispatchTimeout as e:
+            logger.warning(
+                "%s; degrading 7-LUT stage A to the host-chunked driver", e
+            )
+            ctx.stats.put("lut7_candidates", cand_before)
+            ctx.trip_device_breaker()
+            use_device_stream = False
+    if not use_device_stream:
+        cand_before = ctx.stats["lut7_candidates"]
+        try:
+            hits = _lut7_stage_a_chunks(ctx, st, target, mask, inbits, phase)
+        except DispatchTimeout as e:
+            if ctx.device_degraded:
+                raise
+            logger.warning(
+                "%s; degrading 7-LUT stage A to the host chunk stream", e
+            )
+            ctx.stats.put("lut7_candidates", cand_before)
+            ctx.trip_device_breaker()
+            hits = _lut7_stage_a_chunks(ctx, st, target, mask, inbits, phase)
+    hit_combos, hit_req1, hit_req0, nhits = hits
     if nhits == 0:
         empty = np.zeros((0, 4), np.uint32)
         return np.zeros((0, 7), np.int32), empty, empty
@@ -596,6 +757,73 @@ def _lut7_collect_hits(ctx: SearchContext, st: State, target, mask, inbits):
         perm = ctx.rng.permutation(len(combos))
         combos, req1, req0 = combos[perm], req1[perm], req0[perm]
     return combos, req1, req0
+
+
+def _lut7_device_stage_a(ctx: SearchContext, st: State, target, mask, inbits,
+                         phase: str):
+    """The int32-rank device half of stage A: one guarded feasible stream
+    per window, to LUT7_CAP hits.  Under candidate_order="spectral" the
+    windows walk the score-tier segments best-first; run to exhaustion
+    they collect the lex hit set, and a binding LUT7_CAP keeps the
+    best-scored hits.  Raises DispatchTimeout past the deadline."""
+    g = st.num_gates
+    hit_combos: List[np.ndarray] = []
+    hit_req1: List[np.ndarray] = []
+    hit_req0: List[np.ndarray] = []
+    nhits = 0
+    total = comb.n_choose_k(g, 7)
+    prebuilt = ctx.stream_args(st, target, mask, inbits, 7)
+    segments = _order_segments(ctx, 7, prebuilt, phase)
+    ordered = segments is not None
+    if not ordered:
+        segments = [(0, total, 0)]
+    for seg_lo, seg_hi, tier in segments:
+        start = seg_lo
+        while start < seg_hi and nhits < LUT7_CAP:
+            found, cstart, feas, r1, r0, examined, chunk = ctx.feasible_stream_driver(
+                st, target, mask, inbits, k=7, start=start, prebuilt=prebuilt,
+                stop=seg_hi,
+            )
+            ctx.stats.inc("lut7_candidates", examined)
+            if ordered:
+                ctx.stats.inc("order_tier_dispatches")
+            if not found:
+                break  # segment exhausted; on to the next tier segment
+            if ordered and nhits == 0:
+                ctx.stats.inc("order_first_hit_tier", tier)
+            rows = np.nonzero(feas.cpu().numpy())[0]
+            hit_combos.append(np.stack(
+                [comb.unrank_combination(cstart + int(r), g, 7) for r in rows]
+            ))
+            hit_req1.append(sweeps.to_u32(r1)[rows])
+            hit_req0.append(sweeps.to_u32(r0)[rows])
+            nhits += len(rows)
+            start = cstart + chunk
+    return hit_combos, hit_req1, hit_req0, nhits
+
+
+def _lut7_stage_a_chunks(ctx: SearchContext, st: State, target, mask, inbits,
+                         phase: str):
+    """The big-space half of stage A: feasible tuples through
+    :func:`_feasible_chunks`, to LUT7_CAP hits (chunks past the crossing
+    are neither consumed nor counted)."""
+    hit_combos: List[np.ndarray] = []
+    hit_req1: List[np.ndarray] = []
+    hit_req0: List[np.ndarray] = []
+    nhits = 0
+    chunks = _feasible_chunks(
+        ctx, st, target, mask, inbits, 7, LUT7_CHUNK, "lut7_candidates", phase
+    )
+    with closing(chunks):
+        for combos_fn, feas, req1p, req0p in chunks:
+            fidx = np.nonzero(feas)[0]
+            hit_combos.append(combos_fn(fidx))
+            hit_req1.append(sweeps.to_u32(req1p)[fidx])
+            hit_req0.append(sweeps.to_u32(req0p)[fidx])
+            nhits += len(fidx)
+            if nhits >= LUT7_CAP:
+                break
+    return hit_combos, hit_req1, hit_req0, nhits
 
 
 def lut7_search(ctx: SearchContext, st: State, target, mask, inbits) -> Optional[dict]:
@@ -620,7 +848,13 @@ def _lut7_solve_hits(ctx: SearchContext, combos, req1, req0) -> Optional[dict]:
         r1, _ = comb.pad_rows(req1[lo:hi], size, fill=0xFFFFFFFF)
         r0, _ = comb.pad_rows(req0[lo:hi], size, fill=0xFFFFFFFF)
         ctx.stats.inc("lut7_solved", hi - lo)
-        v = sweeps.lut7_solve(ctx.words(r1), ctx.words(r0), jidx, jpp, ctx.next_seed())
+        seed = ctx.next_seed()
+        v = ctx.host_sync_deadline(
+            lambda a=r1, b=r0: sweeps.lut7_solve(
+                ctx.words(a), ctx.words(b), jidx, jpp, seed
+            ),
+            "lut7.solve",
+        )
         if not v[0]:
             continue
         t = lo + int(v[1])

@@ -1,16 +1,24 @@
 """Search orchestration: the per-output iteration driver and the greedy
 multi-output beam search (reference: generate_graph_one_output
-sboxgates.c:661-688, generate_graph sboxgates.c:701-788)."""
+sboxgates.c:661-688, generate_graph sboxgates.c:701-788).
+
+With a :class:`~sboxgates_tpu_torch.resilience.journal.SearchJournal` both
+drivers record each finished unit (an iteration, a beam round) and the run's
+end, and a resumed run continues from the last one with the recorded budgets
+and PRNG position: the JAX package's records, so its journals resume here.
+"""
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List, Optional
 
 import numpy as np
 
 from ..core import ttable as tt
 from ..graph.state import GATES, INT_MAX, MAX_GATES, NO_GATE, State
-from ..graph.xmlio import save_state
+from ..graph.xmlio import save_state, state_filename
+from ..resilience.faults import fault_point
 from .context import SearchContext
 from .kwan import create_circuit
 
@@ -73,32 +81,61 @@ def generate_graph_one_output(
     output: int,
     save_dir: Optional[str] = ".",
     log: Callable[[str], None] = print,
+    journal=None,
 ) -> List[State]:
     """``iterations`` independent attempts at one output bit, ratcheting the
     budget down after each success (sboxgates.c:661-688).  Returns all
-    successful states, best last; each is saved to ``save_dir``."""
+    successful states, best last; each is saved to ``save_dir``.
+
+    ``journal`` records each finished iteration (its checkpoint, the
+    budgets, the PRNG position) and the run's end; resumed from it, the
+    finished iterations come back from their checkpoints and the run goes
+    on from the recorded position.  Requires ``save_dir``."""
     opt = ctx.opt
     log(f"Generating graphs for output {output}...")
     mask = tt.mask_table(st.num_inputs)
     results = []
-    for it in range(opt.iterations):
+    start_it = 0
+    if journal is not None:
+        rec = journal.last("iter_done")
+        if rec is not None:
+            start_it = rec["it"] + 1
+            st.max_gates = rec["max_gates"]
+            st.max_sat_metric = rec["max_sat_metric"]
+            ctx.rng_restore(rec["rng"])
+            results = [
+                journal.load_checkpoint(r["ckpt"])
+                for r in journal.of_type("iter_done")
+                if r.get("ckpt")
+            ]
+            log(f"Resumed at iteration {start_it + 1}/{opt.iterations}.")
+    for it in range(start_it, opt.iterations):
         nst = st.copy()
         nst.outputs[output] = create_circuit(ctx, nst, targets[output], mask, [])
+        ckpt = None
         if nst.outputs[output] == NO_GATE:
             log(f"({it + 1}/{opt.iterations}): Not found.")
-            continue
-        log(
-            f"({it + 1}/{opt.iterations}): "
-            f"{nst.num_gates - nst.num_inputs} gates. "
-            f"SAT metric: {nst.sat_metric}"
-        )
-        if save_dir is not None:
-            save_state(nst, save_dir)
-        results.append(nst)
-        if opt.metric == GATES:
-            st.max_gates = min(st.max_gates, nst.num_gates)
         else:
-            st.max_sat_metric = min(st.max_sat_metric, nst.sat_metric)
+            log(
+                f"({it + 1}/{opt.iterations}): "
+                f"{nst.num_gates - nst.num_inputs} gates. "
+                f"SAT metric: {nst.sat_metric}"
+            )
+            if save_dir is not None:
+                ckpt = os.path.basename(save_state(nst, save_dir))
+            results.append(nst)
+            if opt.metric == GATES:
+                st.max_gates = min(st.max_gates, nst.num_gates)
+            else:
+                st.max_sat_metric = min(st.max_sat_metric, nst.sat_metric)
+        if journal is not None:
+            journal.append(
+                "iter_done", it=it, ckpt=ckpt,
+                max_gates=st.max_gates, max_sat_metric=st.max_sat_metric,
+                rng=ctx.rng_snapshot(),
+            )
+    if journal is not None:
+        journal.append("run_done", beam=[state_filename(s) for s in results])
     return results
 
 
@@ -108,15 +145,29 @@ def generate_graph(
     targets,
     save_dir: Optional[str] = ".",
     log: Callable[[str], None] = print,
+    journal=None,
 ) -> List[State]:
     """Greedy beam search over output order: repeatedly add every missing
     output to every surviving start state, keeping up to BEAM_WIDTH
     minimal-metric states per round (sboxgates.c:701-788).  Returns the
-    final beam."""
+    final beam.
+
+    ``journal`` records each finished round's beam (by checkpoint name, in
+    beam order) and the PRNG position, and the run's end; resumed from it,
+    the interrupted round reruns from its recorded position.  Requires
+    ``save_dir``."""
     opt = ctx.opt
     num_outputs = sbox_num_outputs(targets)
     mask = tt.mask_table(st.num_inputs)
     start_states = [st]
+    rnd = 0
+    if journal is not None:
+        rec = journal.last("round_done")
+        if rec is not None:
+            start_states = [journal.load_checkpoint(p) for p in rec["beam"]]
+            ctx.rng_restore(rec["rng"])
+            rnd = rec["round"]
+            log(f"Resumed after round {rnd}.")
     while sum(1 for o in start_states[0].outputs if o != NO_GATE) < num_outputs:
         done = sum(1 for o in start_states[0].outputs if o != NO_GATE)
         beam = BeamFold(opt.metric, log)
@@ -143,6 +194,8 @@ def generate_graph(
                     if beam.consider(nst, output) and save_dir is not None:
                         save_state(nst, save_dir)
         if not beam.states:
+            if journal is not None:
+                journal.append("run_done", beam=[])
             return []
         if opt.metric == GATES:
             log(
@@ -157,4 +210,24 @@ def generate_graph(
                 f"{beam.max_sat_metric}."
             )
         start_states = beam.states
+        rnd += 1
+        _round_checkpoint(ctx, journal, rnd, beam.states, save_dir)
+    if journal is not None:
+        journal.append("run_done", beam=[state_filename(s) for s in start_states])
     return start_states
+
+
+def _round_checkpoint(ctx, journal, rnd: int, beam_states, save_dir) -> None:
+    """Round boundary: re-save the surviving beam (an atomic replace of
+    files ``consider`` already wrote, which makes sure the files the record
+    names are on disk), journal it, and mark the ``search.round`` fault
+    site."""
+    if journal is not None and journal.writable:
+        for s in beam_states:
+            save_state(s, save_dir)
+        journal.append(
+            "round_done", round=rnd,
+            beam=[state_filename(s) for s in beam_states],
+            rng=ctx.rng_snapshot(),
+        )
+        fault_point("search.round")

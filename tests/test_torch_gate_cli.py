@@ -11,7 +11,9 @@ case and route:
 with ``SBG_DISABLE_NATIVE=1`` for the ``off`` route (every node on the
 device sweeps) and without it for the ``native`` route (the JAX CLI's
 default: the native host runtime and its engines).  The port writes the
-same files, byte for byte, with the variable set or unset the same way.
+same files, byte for byte, with the variable set or unset the same way,
+and the JAX CLI's journal beside them (held against the JAX CLI's live
+runs, whose files hold the absolute input paths).
 The LUT-mode cases hold the default route; their native-off files are
 tests/data/torch_golden/des_s1_l_o0_seed1.xml and
 rijndael_planted_l_o0_seed1_g99.xml (tests/test_torch_search.py), and the
@@ -75,6 +77,18 @@ def _xml_files(d):
     }
 
 
+JOURNAL = ("search.journal.jsonl", "search.journal.json")
+
+
+def _journal_files(d):
+    return {n: open(os.path.join(d, n), "rb").read() for n in JOURNAL}
+
+
+# (case, route) -> the XML files and journal of the port's run, kept for
+# the comparison with the JAX CLI's live runs at the end of the file.
+_PORT_RUNS = {}
+
+
 def _route(monkeypatch, route):
     if route == "native":
         monkeypatch.delenv("SBG_DISABLE_NATIVE", raising=False)
@@ -82,11 +96,28 @@ def _route(monkeypatch, route):
         monkeypatch.setenv("SBG_DISABLE_NATIVE", "1")
 
 
-def _run(argv, tmp_path, capsys):
+def _run(argv, tmp_path, capsys, key=None):
+    """The port's CLI on the CPU into ``tmp_path``, which then holds only the
+    XML files and the journal; kept under ``key`` in _PORT_RUNS."""
     rc = cli.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path)])
     out = capsys.readouterr()
     assert rc == 0, out.err
-    return _xml_files(str(tmp_path)), out
+    stray = [n for n in os.listdir(tmp_path)
+             if not n.endswith(".xml") and n not in JOURNAL]
+    assert not stray, stray
+    got = _xml_files(str(tmp_path))
+    if key is not None:
+        _PORT_RUNS[key] = (got, _journal_files(str(tmp_path)))
+    return got, out
+
+
+def _port_run(key, argv, tmp_path, capsys, monkeypatch):
+    """The port's run of ``key`` = (case, route): from _PORT_RUNS, or run
+    now (when this test runs alone)."""
+    if key not in _PORT_RUNS:
+        _route(monkeypatch, key[1])
+        _run(argv, tmp_path, capsys, key)
+    return _PORT_RUNS[key]
 
 
 @pytest.mark.parametrize("route", ["native", "off"])
@@ -94,7 +125,7 @@ def _run(argv, tmp_path, capsys):
 def test_gate_mode_writes_the_jax_clis_files(name, route, tmp_path, capsys,
                                              monkeypatch):
     _route(monkeypatch, route)
-    got, _ = _run(CASES[name], tmp_path, capsys)
+    got, _ = _run(CASES[name], tmp_path, capsys, (name, route))
     want = _xml_files(os.path.join(GATE, f"{name}_{route}"))
     assert want and sorted(got) == sorted(want)
     for n in want:
@@ -105,7 +136,7 @@ def test_gate_mode_writes_the_jax_clis_files(name, route, tmp_path, capsys,
 def test_default_route_writes_the_jax_clis_default_file(name, tmp_path, capsys,
                                                         monkeypatch):
     _route(monkeypatch, "native")
-    got, _ = _run(NATIVE_ONLY[name], tmp_path, capsys)
+    got, _ = _run(NATIVE_ONLY[name], tmp_path, capsys, (name, "native"))
     want = _xml_files(os.path.join(GATE, f"{name}_native"))
     assert got == want
 
@@ -213,14 +244,15 @@ def jax_gate_runs(tmp_path_factory):
             env.pop("SBG_DISABLE_NATIVE", None)
         else:
             env["SBG_DISABLE_NATIVE"] = "1"
+        cases = dict(CASES, **NATIVE_ONLY) if route == "native" else CASES
         proc = subprocess.run(
-            [sys.executable, "-c", _JAX_RUNNER, json.dumps(CASES), str(out)],
+            [sys.executable, "-c", _JAX_RUNNER, json.dumps(cases), str(out)],
             cwd=str(out), env=env, capture_output=True, text=True, timeout=600,
             preexec_fn=lambda: os.sched_setaffinity(0, {core}),
         )
         assert proc.returncode == 0, proc.stderr[-3000:]
         rcs = json.loads(proc.stdout.strip().splitlines()[-1])
-        assert rcs == {name: 0 for name in CASES}, rcs
+        assert rcs == {name: 0 for name in cases}, rcs
         runs[route] = out
     return runs
 
@@ -231,3 +263,17 @@ def test_gate_goldens_are_the_jax_clis_files(name, route, jax_gate_runs):
     want = _xml_files(os.path.join(jax_gate_runs[route], name))
     assert want, "the JAX CLI wrote no state"
     assert _xml_files(os.path.join(GATE, f"{name}_{route}")) == want
+
+
+@pytest.mark.parametrize("name,route", [(n, r) for n in sorted(CASES)
+                                        for r in ("native", "off")]
+                         + [(n, "native") for n in sorted(NATIVE_ONLY)])
+def test_port_runs_write_the_jax_clis_journal(name, route, jax_gate_runs,
+                                              tmp_path, capsys, monkeypatch):
+    """The port's run of each case writes the JAX CLI's journal
+    (search.journal.jsonl and .json) beside its XML files, byte for byte."""
+    argv = dict(CASES, **NATIVE_ONLY)[name]
+    xml, journal = _port_run((name, route), argv, tmp_path, capsys, monkeypatch)
+    d = os.path.join(jax_gate_runs[route], name)
+    assert xml == _xml_files(d)
+    assert journal == _journal_files(d)

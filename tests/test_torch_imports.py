@@ -46,6 +46,10 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.search.kwan",
         "sboxgates_tpu_torch.graph.xmlio",
         "sboxgates_tpu_torch.native",
+        "sboxgates_tpu_torch.resilience.faults",
+        "sboxgates_tpu_torch.resilience.journal",
+        "sboxgates_tpu_torch.resilience.deadline",
+        "sboxgates_tpu_torch.resilience.checkpoint",
     ):
         assert name in mods
 
@@ -95,7 +99,9 @@ def test_native_runtime_and_a_gate_search_load_neither_jax_nor_reference(tmp_pat
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert os.listdir(tmp_path) == ["1-006-0057-0-13a4fed5.xml"]
+    assert sorted(os.listdir(tmp_path)) == [
+        "1-006-0057-0-13a4fed5.xml", "search.journal.json",
+        "search.journal.jsonl"]
 
 
 @pytest.mark.parametrize("rel", SOURCES)

@@ -8,8 +8,8 @@ placement.
   (exact equality; on a gate-step miss only the step is specified).
 - ``execute_native`` evaluates every ``examples/*.xml`` to its stored
   tables and to the plain evaluator's outputs.
-- An exception in the LUT engine's device-work service surfaces as that
-  exception, with no rerun of the node.
+- A failure of the LUT engine's device-work service makes the engine bail
+  and the node rerun on the Python engine, with one stderr line.
 - The loader builds ``csrc/runtime.cpp`` into ``build/torch_native/`` and
   opens no file of the JAX package.
 """
@@ -317,21 +317,90 @@ def _lut_engine_node():
     return st, target, tt.mask_table(8)
 
 
-def test_lut_engine_service_exception_propagates(monkeypatch):
+def test_lut_engine_service_failure_falls_back_to_python_engine(monkeypatch,
+                                                               capsys):
+    """A failed device-work service makes the engine bail: the counters
+    its call added are dropped, one stderr line reports it, and the node
+    runs on the Python engine (whose own 7-LUT search here misses), as in
+    the JAX package; the exception does not propagate."""
     calls = []
 
-    def failing(ctx, st, target, mask, inbits):
+    def fails_once(ctx, st, target, mask, inbits):
         calls.append(st.num_gates)
-        raise RuntimeError("device launch failed")
+        if len(calls) == 1:
+            raise RuntimeError("device launch failed")
+        return None
 
-    monkeypatch.setattr(tlut, "lut7_search", failing)
+    monkeypatch.setattr(tlut, "lut7_search", fails_once)
     ctx = tctx.SearchContext(tctx.Options(seed=1, device="cpu", lut_graph=True))
     st, target, mask = _lut_engine_node()
+    st.max_gates = 24
     assert ctx.uses_native_engine(st)
-    with pytest.raises(RuntimeError, match="device launch failed"):
-        kwan.create_circuit(ctx, st, target, mask, [])
-    assert calls == [20]  # the engine's one request, not rerun
-    assert "python_nodes" not in ctx.stats
+    failures = native.service_failure_count()
+    capsys.readouterr()
+    out = kwan.create_circuit(ctx, st, target, mask, [])
+    err = capsys.readouterr().err.strip().splitlines()
+    assert native.service_failure_count() == failures + 1
+    assert len(err) == 1 and "fell back to the Python engine" in err[0]
+    assert "device launch failed" in err[0]
+    assert calls[:2] == [20, 20]  # the engine's request, then the Python node
+    assert ctx.stats["python_nodes"] >= 1
+    if out != NO_GATE:
+        st.verify_gate(out, target, mask)
+
+
+def test_broken_engine_service_reruns_the_node_as_the_jax_package_does(
+        monkeypatch, capsys):
+    """The engine's device service broken the same way in both packages
+    (as tests/test_native.py's ``broken_service``), on the JAX tests' planted
+    50-gate node (the pivot sweep, K1's plain version here) and one seed:
+    the same gate comes back, the same gates are added, the restored
+    counters and the PRNG position after the Python engine's rerun agree,
+    and each package prints its one stderr line."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from planted import build_planted_lut5
+
+    from sboxgates_tpu import native as jnative
+    from sboxgates_tpu.search.kwan import create_circuit as jcreate_circuit
+
+    # Each package prints its first few failures: start both counts at 0.
+    monkeypatch.setattr(jnative, "_SERVICE_FAILURES", 0)
+    monkeypatch.setattr(native, "_SERVICE_FAILURES", 0)
+
+    def broken_service(ctx):
+        # Counts part of a sweep, then fails: the bail drops that count.
+        def service(*args):
+            ctx.stats.inc("lut5_candidates", 1000)
+            raise RuntimeError("simulated device failure")
+        return service
+
+    jst, target, mask = build_planted_lut5()
+    st = _port_state(jst)
+    j = jctx.SearchContext(jctx.Options(seed=2, lut_graph=True))
+    j._lut_engine_service_fn = (j, broken_service(j))
+    t = tctx.SearchContext(tctx.Options(seed=2, device="cpu", lut_graph=True,
+                                        native=True))
+    assert t.uses_native_engine(st)
+    t.lut_engine_devcb = native.make_eng_devcb(broken_service(t))
+    capsys.readouterr()
+    want = jcreate_circuit(j, jst, target, mask, [])
+    jerr = capsys.readouterr().err.strip().splitlines()
+    got = kwan.create_circuit(t, st, target, mask, [])
+    err = capsys.readouterr().err.strip().splitlines()
+    assert got == want != NO_GATE
+    st.verify_gate(got, target, mask)
+    assert ([(g.type, g.in1, g.in2, g.in3, g.function) for g in st.gates]
+            == [(g.type, g.in1, g.in2, g.in3, g.function) for g in jst.gates])
+    keys = STAT_KEYS + ("lut5_solved", "python_nodes", "engine_nodes",
+                        "engine_devcalls")
+    assert ({k: int(t.stats.get(k, 0)) for k in keys}
+            == {k: int(j.stats.get(k, 0)) for k in keys})
+    assert t.stats["python_nodes"] >= 1 and t.stats["lut5_candidates"] > 0
+    assert t.rng_snapshot() == j.rng_snapshot()
+    assert len(err) == len(jerr) == 1
+    assert err[0].replace("sboxgates_tpu_torch", "sboxgates_tpu") == jerr[0]
 
 
 def test_lut_engine_services_device_work(monkeypatch):
@@ -397,3 +466,50 @@ def test_unbuildable_runtime_falls_back_to_the_device(tmp_path, monkeypatch):
         assert not ctx.uses_native_step(st)
     assert not ctx.uses_native_engine(st)
     assert "source not found" in native.build_error()
+
+
+# A stand-in compiler: records its call, takes a second (so concurrent
+# builds overlap) and writes the file named after -o.
+_FAKE_COMPILER = """#!{python}
+import sys, time
+with open({log!r}, "a") as f:
+    f.write("compile\\n")
+time.sleep(1)
+open(sys.argv[sys.argv.index("-o") + 1], "wb").close()
+"""
+
+# Builds with the module's BUILD_DIR set to argv[1]; prints the library path.
+_BUILDER = """
+import sys
+from sboxgates_tpu_torch import {mod} as m
+m.BUILD_DIR = sys.argv[1]
+print(m.build())
+"""
+
+
+@pytest.mark.parametrize("mod,env_var,compiles", [
+    ("native", "CXX", 1),
+    # One nvcc per CUDA source, and the link.
+    ("_kernels", "NVCC", len(glob.glob(os.path.join(
+        ROOT, "sboxgates_tpu_torch", "csrc", "*.cu"))) + 1),
+])
+def test_concurrent_builds_compile_once(mod, env_var, compiles, tmp_path):
+    """Two processes building into one empty build directory at once: the
+    build lock makes one compile while the other waits, then finds the
+    library current."""
+    import sys
+
+    log = tmp_path / "compiles.log"
+    fake = tmp_path / "fake_compiler"
+    fake.write_text(_FAKE_COMPILER.format(python=sys.executable, log=str(log)))
+    fake.chmod(0o755)
+    env = dict(os.environ, PYTHONPATH=ROOT, **{env_var: str(fake)})
+    build_dir = str(tmp_path / "build")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BUILDER.format(mod=mod), build_dir],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert len({o[0].strip() for o in outs}) == 1
+    assert log.read_text().count("compile") == compiles

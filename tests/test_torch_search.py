@@ -2,7 +2,8 @@
 
 With the native runtime off in both packages (``SBG_DISABLE_NATIVE=1``:
 every node on the device sweeps), the same command writes the same XML
-state files, byte for byte.  The JAX runs share one subprocess
+state files and the same journal (``search.journal.jsonl`` and
+``search.journal.json``), byte for byte, and nothing else.  The JAX runs share one subprocess
 (the native switch must be set before that package first loads its
 runtime).  DES S1 is also held against the committed file the JAX CLI
 wrote for the same command (tests/data/torch_golden/), the file the chip
@@ -99,6 +100,22 @@ def _xml_files(d):
     }
 
 
+JOURNAL = ("search.journal.jsonl", "search.journal.json")
+
+
+def _journal_files(d):
+    """The run's journal files (the JAX CLI writes them beside its XML)."""
+    return {n: open(os.path.join(d, n), "rb").read() for n in JOURNAL}
+
+
+def _port_journal(d):
+    """:func:`_journal_files` of a directory only the port wrote, which must
+    hold nothing but the XML files and the journal."""
+    stray = [n for n in os.listdir(d) if not n.endswith(".xml") and n not in JOURNAL]
+    assert not stray, stray
+    return _journal_files(d)
+
+
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_cli")
@@ -142,6 +159,7 @@ def test_cli_writes_the_jax_packages_files(name, jax_runs, tmp_path, native_off)
     assert sorted(got) == sorted(want)
     for n in want:
         assert got[n] == want[n], n
+    assert _port_journal(str(tmp_path)) == _journal_files(os.path.join(out, name))
 
 
 def test_crypto1_golden_is_the_jax_clis_file(jax_runs):
@@ -162,6 +180,7 @@ def test_des_s1_matches_the_jax_cli_and_golden_file(jax_runs, tmp_path, capsys,
     assert rc == 0
     got = _xml_files(str(tmp_path))
     assert got == _xml_files(os.path.join(out, "des_o0"))
+    assert _port_journal(str(tmp_path)) == _journal_files(os.path.join(out, "des_o0"))
     assert list(got) == ["1-011-0000-0-a7556919.xml"]
     with open(os.path.join(GOLDEN, "des_s1_l_o0_seed1.xml"), "rb") as f:
         assert got["1-011-0000-0-a7556919.xml"] == f.read()
@@ -213,6 +232,10 @@ def test_pivot_backend_flag_writes_the_jax_clis_file(backend, jax_runs, tmp_path
     assert calls["pre" if backend == "packed" else "packed"] == 0
     want = _xml_files(os.path.join(out, "g50_pivot"))
     assert want and _xml_files(str(tmp_path)) == want
+    # --pivot-backend is not journaled: the JAX CLI's journal, whichever
+    # kernel ran.
+    assert _port_journal(str(tmp_path)) == _journal_files(
+        os.path.join(out, "g50_pivot"))
 
 
 def test_pivot_resume_inputs_come_from_chip_smokes_generators():
@@ -301,4 +324,6 @@ def test_verbose_run_prints_the_function_lists(capsys, tmp_path):
     out = capsys.readouterr().out
     assert out.startswith("Available gates: NOT AND XOR OR \n")
     assert "stats: " in out and "python_nodes=" in out
-    np.testing.assert_equal(len(os.listdir(tmp_path)), 1)
+    names = sorted(os.listdir(tmp_path))
+    assert len([n for n in names if n.endswith(".xml")]) == 1
+    assert [n for n in names if not n.endswith(".xml")] == sorted(JOURNAL)

@@ -125,6 +125,11 @@ def test_spectral_cli_writes_the_jax_clis_file(name, jax_runs, tmp_path, capsys,
     if name in rcs:
         assert rcs[name] == 0
         assert got and got == _xml_files(os.path.join(out, name))
+        # The journal records candidate_order: the JAX CLI's bytes too.
+        for n in ("search.journal.jsonl", "search.journal.json"):
+            with open(os.path.join(out, name, n), "rb") as a, \
+                    open(os.path.join(str(tmp_path), n), "rb") as b:
+                assert a.read() == b.read(), n
     if name in GOLDEN_FILES:
         with open(os.path.join(GOLDEN, GOLDEN_FILES[name]), "rb") as f:
             assert list(got.values()) == [f.read()]
