@@ -96,14 +96,33 @@ prints no result.  Phases, each of which raises on failure:
    trip counters on one line;
 9. the journal's cost on the default route: 7c's and 7d's commands five
    more times each, every run's wall beside its time in the journal's
-   writes and in the device probe (every CLI run's line prints the two).
+   writes, in the device probe and in the telemetry (every CLI run's line
+   prints the three);
+10. telemetry (``--trace --status-port 0 --metrics-interval 0.05``):
+   a. the G = 99 resume on the default route (7d's command) and on the
+      device route (4a's, packed): the goldens, ``trace.json`` whose
+      dispatch spans are as many as metrics.json's ``device_dispatches``,
+      K1's 8 launch times (``dispatch_latency_s[pivot_window/...]``, CUDA
+      events) with every K1 attribution row at most 105% of its bound, the
+      wall beside phase 9's median of 7d, and the host syncs
+      (``set_sync_debug_mode("warn")``) equal to those of the same run
+      without telemetry;
+   b. DES S1 ``-l`` on the device route: K3's 132 launch times and its
+      attribution row at N = 2^17;
+   c. the flight dumps of phase 8's runs: 8a's crash dumps before exit 17,
+      8c leaves a ``deadline_exhausted`` and a ``circuit_breaker`` dump,
+      each with its heartbeat incident line.
 
-Every CLI run's output directory must hold its XML files and the JAX CLI's
-journal for the same command (``search.journal.jsonl`` and ``.json``, the
-goldens under tests/data/torch_golden/journal/, written by
-tests/torch_journal_goldens.py), and nothing else.
+Every CLI run's output directory must hold the JAX CLI's names for the same
+command and nothing else: its XML files, the journal
+(``search.journal.jsonl`` and ``.json``, byte for byte the goldens under
+tests/data/torch_golden/journal/, written by
+tests/torch_journal_goldens.py), the telemetry of an explicit
+``--output-dir`` (``telemetry.jsonl``, ``metrics.json``), and the trace and
+the flight dumps where the run makes them.
 
-The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d) and phase 6 are the main path.  Every launch
+The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b) and phase 6 are the
+main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
 kernel and K2's on the G = 99 resume with their backend, K5 on the
@@ -154,14 +173,14 @@ LEX_LAUNCHES = {
 G99_TILES = 114
 G99_CANDIDATES = 2061108
 
-# H100 SXM peaks.  HBM bandwidth from NVIDIA's data sheet.  The kernels run
-# 32-bit logic (LOP3) on the integer pipe, which retires 64 results per SM
-# per clock on compute capability 9.0 (CUDA C++ Programming Guide,
-# arithmetic instruction throughput): 132 SMs at the 1.98 GHz boost clock.
-HBM_BYTES_S = 3.35e12
-INT32_OPS_S = 64 * 132 * 1.98e9
-# int8 tensor-core peak (data sheet), for the TPU kernels' GEMM formulation.
-INT8_TC_OPS_S = 1.979e15
+
+def attribution():
+    """The port's attribution module: the kernels' analytic costs
+    (``window_cost``, ``filter_cost``, ``walsh_cost``, ``circuit_cost``)
+    and ``bound`` against the H100 SXM data-sheet peaks (``PEAKS``)."""
+    from sboxgates_tpu_torch.telemetry import attribution as attr
+
+    return attr
 
 
 def log(msg: str) -> None:
@@ -371,8 +390,7 @@ def phase_parity(dev) -> dict:
                     lambda: lut5_filter.lut5_filter_cells_plain(tables, combos, target, mask), 5
                 ),
                 shape=f"N={n} B={b}",
-                bytes=n * 5 * 4 + b * 8 * 4 + 2 * 8 * 4 + 2 * n * 4,
-                ops=n * ((62 + 64) * 8 + 64),
+                **attribution().filter_cost(n, b),
             )
     out["lut5_filter"] = k3
 
@@ -424,23 +442,6 @@ def phase_parity(dev) -> dict:
             f"{'not in the trace' if dms is None else f'{dms:.4f} ms'}), "
             f"plain {r['plain_ms']:.3f} ms at {r['shape']}")
     return out
-
-
-def window_cost(n: int, tl: int, th: int, backend: str) -> dict:
-    """Bytes and operations of a window of ``n`` pivot tiles.  Bytes: per
-    tile its descriptor, pivot table, low rows (2 x 4 cells) and high rows
-    (4 cells), as 32 B of words on the packed backend and 256 B of int8
-    lanes on pre, and validity bytes in; 9 B per candidate and a count out.
-    Operations, one per formulation of the same function: K1's 576 AND-OR
-    and pack steps and 4 of the fused epilogue per candidate on the integer
-    pipe (``ops``), and the TPU's two int8 GEMMs per tile,
-    2 x 2 x (8 tl) x (4 th) x 256, on the tensor cores (``tc_ops``)."""
-    cand = tl * th
-    row = 32 if backend == "packed" else 256
-    per_tile_in = 20 + 32 + tl * 2 * 4 * row + th * 4 * row + tl + th
-    return {"bytes": n * (per_tile_in + 9 * cand + 4),
-            "ops": n * cand * (576 + 4),
-            "tc_ops": n * 2 * 2 * (8 * tl) * (4 * th) * 256}
 
 
 WINDOWS = {
@@ -509,7 +510,7 @@ def parity_window(dev, tables, target, mask, backend) -> dict:
                 plain_ms=time_ms(lambda n=n: plain(*args, mid, n, t_real, tl, th),
                                  1, warmup=1),
                 shape=f"{n} tiles of {tl}x{th} (G={g})", tiles=n,
-                **window_cost(n, tl, th, backend),
+                **attribution().window_cost(n, tl, th, backend),
             )
             timed[(tl, th, n)] = t
             dms = t["device_ms"]
@@ -548,22 +549,6 @@ def gemm_only_ms(ops, m: int, lo0: int, hi0: int, tl: int, th: int):
         f"{4 * a.shape[0] * h.shape[1] / 2**20:.0f} MB of int32 counts): "
         f"{ms:.4f} ms per tile")
     return ms
-
-
-WALSH_THREADS = 512     # csrc/walsh_score.cu: threads per block
-
-
-def walsh_cost(b: int, sms: int) -> dict:
-    """Bytes and 32-bit integer operations of K5 over ``b`` gates, as the
-    kernel computes the function (one transform of the spectrum per block,
-    then a byte-table sum per gate): 32 B of table in and 4 B of score out
-    per gate plus the 1 KB spectrum; per block the 8 x 256 adds of
-    WHT(spectrum) and 8,192 for its byte table (a lookup table of 32 x 256
-    sums), per gate 32 lookups and 32 adds.  The grid has at most two
-    blocks per SM (``sms`` of them)."""
-    blocks = min((b + WALSH_THREADS - 1) // WALSH_THREADS, 2 * sms)
-    return {"bytes": b * (32 + 4) + 256 * 4,
-            "ops": blocks * (8 * 256 + 8192) + b * 64}
 
 
 def parity_walsh(dev, rng) -> dict:
@@ -607,7 +592,7 @@ def parity_walsh(dev, rng) -> dict:
             device_ms=kernel_device_ms(run, "walsh_score_kernel"),
             plain_ms=time_ms(lambda: spectral.gate_scores_plain(tables, spec), 5),
             shape=f"B={b}" + (" (large B, off the path)" if b > 512 else ""),
-            **walsh_cost(b, sms),
+            **attribution().walsh_cost(b, sms),
         )
     r.update(timed[512])
     r["also"] = [timed[64], timed[1 << 20]]
@@ -615,15 +600,14 @@ def parity_walsh(dev, rng) -> dict:
 
 
 def circuit_cost(st, w: int) -> dict:
-    """Bytes and operations of K4 over ``w`` words: each input and output
-    word once plus the 16 B-per-instruction program, and one 32-bit logic
-    operation (a LOP3) per gate an output needs and word."""
+    """K4's bytes and operations (``attribution.circuit_cost``) over ``w``
+    words of the circuit ``st``: its inputs, its outputs and the
+    instructions of its lowered program."""
     from sboxgates_tpu_torch.codegen import cuda_kernel, output_bits
 
-    n_out = len(output_bits(st))
     prog, _, _ = cuda_kernel.pack_program(st)
-    return {"bytes": 4 * (st.num_inputs + n_out) * w + 16 * len(prog),
-            "ops": len(prog) * w}
+    return attribution().circuit_cost(st.num_inputs, len(output_bits(st)),
+                                      len(prog), w)
 
 
 def parity_circuit(dev) -> dict:
@@ -772,23 +756,62 @@ def _journal_timed():
 
     return {"journal": [(journal.SearchJournal, "append"),
                         (journal, "durable_write_text")]}
+
+
+def _telemetry_timed():
+    """The telemetry's work on the CLI's own thread, timed in every CLI run:
+    the heartbeat's truncation, start line and stop (final line,
+    metrics.json), the /status endpoint's start and shutdown, and the trace
+    export."""
+    from sboxgates_tpu_torch.telemetry import heartbeat, status, trace
+
+    return {"telemetry": [(heartbeat.Heartbeat, "__init__"),
+                          (heartbeat.Heartbeat, "start"),
+                          (heartbeat.Heartbeat, "stop"),
+                          (status.StatusServer, "__init__"),
+                          (status.StatusServer, "shutdown"),
+                          (trace.Tracer, "export")]}
+
+
+# What an explicit --output-dir holds beside the XML files and the journal,
+# as in the JAX CLI: the heartbeat and the end-of-run snapshot.
+TELEMETRY_FILES = ("metrics.json", "telemetry.jsonl")
+
+
+def flight_reasons(d: str) -> list:
+    """The reasons of the flight-recorder dumps in ``d``, in dump order."""
+    names = sorted((n for n in os.listdir(d) if n.startswith("flight-")),
+                   key=lambda n: int(n.rsplit("-", 1)[1].split(".")[0]))
+    out = []
+    for n in names:
+        with open(os.path.join(d, n), encoding="utf-8") as f:
+            out.append(json.load(f)["reason"])
+    return out
+
+
+def heartbeat_kinds(d: str) -> list:
+    with open(os.path.join(d, "telemetry.jsonl"), encoding="utf-8") as f:
+        return [json.loads(line)["kind"] for line in f if line.strip()]
 # The golden journals name their inputs by absolute path, the checkout's
 # root written as this mark (tests/torch_journal_goldens.py).
 ROOT_MARK = "@ROOT@"
 
 
-def check_run_dir(label: str, d: str, journal: str, xml_goldens=None) -> list:
-    """The files of a CLI run's output directory: its XML files and its
-    journal, nothing else (a stray file fails).  The journal must be the
-    JAX CLI's for the same command, byte for byte (GOLDEN/journal/<journal>/,
-    the mark replaced by this checkout's root), and so must every XML file
-    when ``xml_goldens`` (a directory) is given.  Returns the XML paths."""
+def check_run_dir(label: str, d: str, journal: str, xml_goldens=None,
+                  extra=()) -> list:
+    """The files of a CLI run's output directory: its XML files, its
+    journal, the telemetry files and the names in ``extra`` (the trace, the
+    flight dumps), the JAX CLI's names for the same command, and nothing
+    else.  The journal must be the JAX CLI's for the same command, byte for
+    byte (GOLDEN/journal/<journal>/, the mark replaced by this checkout's
+    root), and so must every XML file when ``xml_goldens`` (a directory) is
+    given.  Returns the XML paths."""
     names = sorted(os.listdir(d))
     xmls = [n for n in names if n.endswith(".xml")]
-    stray = sorted(set(names) - set(xmls) - set(JOURNAL_FILES))
-    if stray or not set(JOURNAL_FILES) <= set(names):
+    want_rest = sorted(JOURNAL_FILES + TELEMETRY_FILES + tuple(extra))
+    if sorted(set(names) - set(xmls)) != want_rest:
         raise AssertionError(f"{label}: {d} holds {names}: expected the XML "
-                             f"files and {JOURNAL_FILES} only")
+                             f"files and {want_rest}")
     want = {}
     for n in JOURNAL_FILES:
         with open(os.path.join(JOURNAL_GOLDEN, journal, n), encoding="utf-8") as f:
@@ -809,7 +832,7 @@ def check_run_dir(label: str, d: str, journal: str, xml_goldens=None) -> list:
 
 def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
             native: bool = False, verbose: bool = True, journal: str = None,
-            extra=(), faults_spec: str = None):
+            extra=(), faults_spec: str = None, extra_names=()):
     """``python -m sboxgates_tpu_torch <argv> [-v -v] <extra> --output-dir
     <dir>`` in process, on ``dev``, on the native route or
     (``native=False``) the device route, with the fault sites of
@@ -817,10 +840,12 @@ def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
     output gate in it is checked against the S-box ``box``, its bytes
     against ``golden`` (the file the JAX CLI writes for the same command,
     route and faults), and the directory by :func:`check_run_dir` against
-    the journal golden ``journal`` (default: the label's last word).
-    Returns the state file's path, the run's counters (its search
-    context's stats, the ``-v -v`` line's) with ``gate_step`` calls added
-    and the run's standard error as ``stderr``, and its wall seconds."""
+    the journal golden ``journal`` (default: the label's last word), the
+    directory also holding ``extra_names``.  Returns the state file's path,
+    the run's counters (its search context's stats, the ``-v -v`` line's)
+    with ``gate_step`` calls added, the run's standard error as ``stderr``
+    and the seconds in the journal's writes, the device probe and the
+    telemetry's work, and its wall seconds."""
     from sboxgates_tpu_torch import cli
     from sboxgates_tpu_torch.core import ttable as tt
     from sboxgates_tpu_torch.graph.xmlio import load_state
@@ -834,7 +859,8 @@ def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err), \
             native_route(native), armed(faults_spec), \
             counting_calls(SearchContext, "gate_step") as seen, \
-            timing_calls(_journal_timed() | {"probe": [(cli, "_probe_device")]}) as spent:
+            timing_calls(_journal_timed() | _telemetry_timed()
+                         | {"probe": [(cli, "_probe_device")]}) as spent:
         rc = cli.main([*argv, *(["-v", "-v"] if verbose else []), *extra,
                        "--device", dev.type, "--output-dir", d, box])
     wall = time.perf_counter() - t0
@@ -845,8 +871,10 @@ def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
     stats["stderr"] = err.getvalue()
     stats["journal_s"], stats["journal_writes"] = spent["journal"]
     stats["probe_s"] = spent["probe"][0]
+    stats["telemetry_s"] = spent["telemetry"][0]
     names = [os.path.basename(p) for p in
-             check_run_dir(label, d, journal or label.split()[-1])]
+             check_run_dir(label, d, journal or label.split()[-1],
+                           extra=extra_names)]
     if len(names) != 1:
         raise AssertionError(f"{label}: expected one state file, found {names}")
     path = os.path.join(d, names[0])
@@ -864,7 +892,8 @@ def run_cli(dev, label: str, argv, box: str, golden: str, outdir: str,
         f"{'byte-identical to' if same else 'DIFFERS from'} the golden file, "
         "journal byte-identical to the JAX CLI's; "
         f"{1e3 * stats['journal_s']:.3f} ms in {stats['journal_writes']} journal "
-        f"writes, {1e3 * stats['probe_s']:.3f} ms in the device probe")
+        f"writes, {1e3 * stats['probe_s']:.3f} ms in the device probe, "
+        f"{1e3 * stats['telemetry_s']:.3f} ms in the telemetry")
     if not same:
         raise AssertionError(f"{label}: XML differs from {golden}")
     return path, stats, wall
@@ -1400,15 +1429,151 @@ def phase_journal_cost(dev, outdir: str) -> dict:
                 dev, f"phase 9 journal cost {name}_{r}", argv, box, golden,
                 outdir, native=True, verbose=False, journal=name)
             rows.append((wall, st["journal_s"], st["probe_s"],
-                         st["journal_writes"]))
-        wall, jour, probe, writes = (statistics.median(c) for c in zip(*rows))
+                         st["journal_writes"], st["telemetry_s"]))
+        wall, jour, probe, writes, tele = (statistics.median(c) for c in zip(*rows))
         out[name] = {"walls": [r[0] for r in rows], "wall": wall,
-                     "journal_s": jour, "probe_s": probe}
+                     "journal_s": jour, "probe_s": probe, "telemetry_s": tele}
         log(f"  9 {name}: walls {[round(r[0], 4) for r in rows]} s; median "
             f"wall {wall:.4f} s, journal {1e3 * jour:.3f} ms in {writes:g} "
-            f"writes, device probe {1e3 * probe:.3f} ms, wall less both "
-            f"{wall - jour - probe:.4f} s")
+            f"writes, device probe {1e3 * probe:.3f} ms, telemetry (heartbeat "
+            f"and metrics.json) {1e3 * tele:.3f} ms, wall less the three "
+            f"{wall - jour - probe - tele:.4f} s")
     return out
+
+
+TRACE_FLAGS = ["--trace", "--status-port", "0", "--metrics-interval", "0.05"]
+# Phase 10's traced CLI runs: name -> (argv, S-box, golden, journal golden,
+# native route, -v -v, the kernel whose launch times it checks, its launches
+# (LEX_LAUNCHES), the bucket of its attribution row to print).
+TRACED_RUNS = {
+    "g99_native": (G99_ARGV, G99_BOX,
+                   os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml"),
+                   "g99_native", True, False, "pivot_window", 8, None),
+    "g99_packed": (G99_ARGV, G99_BOX,
+                   os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml"),
+                   "g99", False, True, "pivot_window", 8, None),
+    "des_s1": (DES_ARGV, DES_BOX, os.path.join(GOLDEN, "des_s1_l_o0_seed1.xml"),
+               "des_s1", False, True, "lut5_filter", 132, "131072x64"),
+}
+
+
+@contextlib.contextmanager
+def untimed_launches():
+    """The kernel launch timing off: ``attribution.recording`` binds no
+    timer (the baseline of the sync count, a run without telemetry)."""
+    attr = attribution()
+    real = attr.recording
+
+    @contextlib.contextmanager
+    def unbound(timer, gate=None):
+        with real(None, gate) as launched:
+            yield launched
+
+    attr.recording = unbound
+    try:
+        yield
+    finally:
+        attr.recording = real
+
+
+def count_syncs(dev, outdir: str, name: str, traced: bool) -> int:
+    """Host syncs of one run of TRACED_RUNS[name] (``sync_guard`` in count
+    mode: ``torch.cuda.set_sync_debug_mode("warn")``'s warnings): with
+    every telemetry feature on, or with none (no flag, no explicit
+    --output-dir, so no heartbeat, and the launch timing off); the files
+    go to a directory of their own."""
+    from sboxgates_tpu_torch import cli
+    from sboxgates_tpu_torch.utils.guards import sync_guard
+
+    argv, box, _, _, native, verbose, _, _, _ = TRACED_RUNS[name]
+    d = tempfile.mkdtemp(prefix=f"syncs-{name}-", dir=outdir)
+    flags = TRACE_FLAGS + ["--output-dir", d] if traced else []
+    cwd = os.getcwd()
+    os.chdir(d)  # the run without --output-dir writes into the cwd
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+            stack.enter_context(native_route(native))
+            if not traced:
+                stack.enter_context(untimed_launches())
+            rep = stack.enter_context(sync_guard(action="count", device=dev))
+            rc = cli.main([*argv, *(VV if verbose else []), "--device", dev.type,
+                           *flags, box])
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise AssertionError(f"10 sync count {name}: exit {rc}")
+    return rep
+
+
+def phase_traced(dev, outdir: str, name: str, ref_wall=None) -> dict:
+    """Phase 10a/10b: TRACED_RUNS[name] with ``--trace --status-port 0
+    --metrics-interval 0.05``: the XML and the journal the goldens, the
+    directory the JAX CLI's names plus trace.json; the trace's dispatch
+    spans as many as metrics.json's device_dispatches; the kernel's launch
+    times (``dispatch_latency_s[<kernel>/...]``) as many as its launches,
+    each attribution row of it at most 105% of its bound (a time below the
+    bound is a timing fault).  Prints the wall beside ``ref_wall``."""
+    argv, box, golden, journal, native, verbose, kernel, launches, row_bucket = \
+        TRACED_RUNS[name]
+    path, stats, wall = run_cli(
+        dev, f"phase 10 traced {name}", argv, box, golden, outdir, native=native,
+        verbose=verbose, journal=journal, extra=TRACE_FLAGS,
+        extra_names=("trace.json",))
+    d = os.path.dirname(path)
+    with open(os.path.join(d, "metrics.json"), encoding="utf-8") as f:
+        metrics = json.load(f)
+    with open(os.path.join(d, "trace.json"), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    spans = sum(1 for e in events
+                if e.get("cat") == "dispatch" and e["name"].startswith("dispatch["))
+    dispatches = metrics["counters"]["device_dispatches"]
+    kinds = heartbeat_kinds(d)
+    if spans != dispatches or not dispatches or kinds[0] != "start" or \
+            kinds[-1] != "final":
+        raise AssertionError(f"10 {name}: {spans} dispatch spans, "
+                             f"device_dispatches {dispatches}, heartbeat {kinds}")
+    prefix = f"dispatch_latency_s[{kernel}/"
+    timed = sum(h["count"] for k, h in metrics["histograms"].items()
+                if k.startswith(prefix))
+    rows = [r for r in metrics["attribution"]["rows"] if r["kernel"] == kernel]
+    worst = max(r.get("roofline_utilization", 0.0) for r in rows) if rows else None
+    if timed != launches or metrics["attribution"]["backend"] != "gpu" or \
+            worst is None or worst > 1.05:
+        raise AssertionError(f"10 {name}: {timed} launch times of {kernel} "
+                             f"(expected {launches}), rows {rows}")
+    log(f"phase 10 traced {name}: wall {wall:.4f} s"
+        + (f" (phase 9's median of the same command without the flags "
+           f"{ref_wall:.4f} s)" if ref_wall is not None else "")
+        + f", of it {1e3 * stats['telemetry_s']:.3f} ms in the telemetry; "
+        f"{spans} dispatch spans = device_dispatches, {timed} {kernel} launch "
+        f"times")
+    for r in rows:
+        mean = r.get("mean_dispatch_latency_s")
+        log(f"  attribution {kernel}/{r['bucket']}: {r['dispatches']} launches, "
+            f"{'-' if mean is None else f'{1e3 * mean:.5f}'} ms per launch "
+            f"(CUDA events around the launch in its entry point: the kernel "
+            f"plus the stream's start-up), bound {1e3 * r['bound_s']:.5f} ms by "
+            f"{r['bound_by']} ({r['bound_formulation']}), the bound is "
+            f"{100 * r.get('roofline_utilization', 0):.1f}% of that time, "
+            f"{r.get('roofline', '-')}")
+    row = next((r for r in rows if r["bucket"] == row_bucket), None)
+    return {"wall": wall, "telemetry_s": stats["telemetry_s"], "spans": spans,
+            "launch_times": timed, "rows": rows, "row": row}
+
+
+def phase_traced_syncs(dev, outdir: str, name: str) -> dict:
+    """Phase 10a's sync check: the host syncs of TRACED_RUNS[name] with
+    every telemetry feature on equal those without telemetry."""
+    reps = {t: count_syncs(dev, outdir, name, t) for t in (False, True)}
+    syncs = {t: r.syncs for t, r in reps.items()}
+    log(f"phase 10 syncs {name}: {syncs[True]} host syncs with the telemetry, "
+        f"{syncs[False]} without")
+    if syncs[True] != syncs[False]:
+        for t, r in reps.items():
+            log(f"  syncs {'with' if t else 'without'} the telemetry: {r.events}")
+        raise AssertionError(f"10 {name}: the telemetry changed the host syncs")
+    return syncs
 
 
 def rand_gate_state(rng, num_inputs: int, extra: int):
@@ -1529,13 +1694,22 @@ def phase_crash_resume(dev, outdir: str) -> dict:
     left = sorted(os.listdir(d))
     if not any(n.startswith(".sbg-tmp-") for n in left):
         raise AssertionError(f"8a: the crash left no torn temp file: {left}")
+    # Phase 10c: the crash dumped the flight recorder before its exit, and
+    # the dump's incident hook wrote the heartbeat's last line.
+    crash_dumps, crash_kinds = flight_reasons(d), heartbeat_kinds(d)
+    if crash_dumps != ["injected_crash"] or crash_kinds[-1] != "incident:injected_crash":
+        raise AssertionError(f"10c: the crash left dumps {crash_dumps} and "
+                             f"heartbeat lines {crash_kinds}")
+    log(f"phase 10c crash (8a): exit 17 after a flight dump {crash_dumps} "
+        f"and the heartbeat line {crash_kinds[-1]!r}")
     env.pop("SBG_FAULTS")
     rc, out, wall, text = cli_process(
         ["--resume-run", d, "--device", dev.type], env, "phase 8a resume run")
     if rc != 0 or out is None:
         raise AssertionError(f"8a: the resume exited {rc}: {text[-2000:]}")
     check_run_dir("phase 8a crash_resume", d, "crash_resume",
-                  xml_goldens=os.path.join(JOURNAL_GOLDEN, "crash_resume"))
+                  xml_goldens=os.path.join(JOURNAL_GOLDEN, "crash_resume"),
+                  extra=("flight-rank00-1.json",))
     st = out["stats"]
     if out["lut5_filter"] <= 0:
         raise AssertionError(f"8a: the resumed iteration launched no K3: {out}")
@@ -1551,27 +1725,43 @@ def phase_crash_resume(dev, outdir: str) -> dict:
 
 
 # Phase 8b-8d: the G = 99 resume of 7d on the default route under a fault:
-# (journal golden, XML golden, extra argv, SBG_FAULTS).
+# (journal golden, XML golden, extra argv, SBG_FAULTS, the reasons of the
+# flight-recorder dumps it leaves, in order).
 G99_FAULTED = {
     "g99_hang1": ("g99_native",
                   os.path.join(GOLDEN, "rijndael_planted_l_o0_seed1_g99.xml"),
-                  HANG_TIMEOUT, "dispatch.sweep:hang@1"),
-    "g99_hang_all": ("g99_hang_all", None, HANG_TIMEOUT, "dispatch.sweep:hang@1+"),
-    "g99_devcb": ("g99_devcb", None, [], "native.devcb:raise@1"),
+                  HANG_TIMEOUT, "dispatch.sweep:hang@1", []),
+    "g99_hang_all": ("g99_hang_all", None, HANG_TIMEOUT, "dispatch.sweep:hang@1+",
+                     ["deadline_exhausted", "circuit_breaker"]),
+    "g99_devcb": ("g99_devcb", None, [], "native.devcb:raise@1", []),
 }
 
 
 def phase_g99_faulted(dev, outdir: str, name: str):
     """Phases 8b-8d: 7d's G = 99 resume on the default route with the
     faults of G99_FAULTED[name]; the file and the journal must be the JAX
-    CLI's under the same spec.  Returns run_cli's triple."""
-    journal, golden, extra, spec = G99_FAULTED[name]
+    CLI's under the same spec, and the run must leave the flight dumps the
+    entry names (phase 10c for 8c: the breaker's and the retry
+    exhaustion's).  Returns run_cli's triple."""
+    journal, golden, extra, spec, dumps = G99_FAULTED[name]
     if golden is None:
         d = os.path.join(JOURNAL_GOLDEN, journal)
         golden = os.path.join(d, [n for n in os.listdir(d) if n.endswith(".xml")][0])
-    return run_cli(dev, f"phase 8 {spec} {name}", G99_ARGV, G99_BOX, golden, outdir,
-                   native=True, verbose=False, journal=journal, extra=extra,
-                   faults_spec=spec)
+    out = run_cli(dev, f"phase 8 {spec} {name}", G99_ARGV, G99_BOX, golden, outdir,
+                  native=True, verbose=False, journal=journal, extra=extra,
+                  faults_spec=spec,
+                  extra_names=[f"flight-rank00-{i + 1}.json" for i in range(len(dumps))])
+    d = os.path.dirname(out[0])
+    got, kinds = flight_reasons(d), heartbeat_kinds(d)
+    incidents = [k for k in kinds if k.startswith("incident:")]
+    if got != dumps or incidents != [f"incident:{r}" for r in dumps] or \
+            kinds[-1] != "final":
+        raise AssertionError(f"{name}: flight dumps {got} and heartbeat lines "
+                             f"{kinds}, expected the dumps {dumps}")
+    if dumps:
+        log(f"phase 10c {name}: flight dumps {got}, heartbeat incident lines "
+            f"{incidents}, then the final line")
+    return out
 
 
 def fault_line(label: str, wall: float, counts: dict, stats: dict) -> None:
@@ -1650,19 +1840,9 @@ KERNELS = {
 
 
 def bound(r: dict):
-    """(bound_ms, bound_by, formulation) of a timed shape: the least time
-    the card could take, the larger of its bytes over the HBM rate and its
-    operations over their peak rate.  Where the same function has two
-    formulations (the pivot tile: 32-bit logic on the integer pipe, or the
-    TPU's int8 GEMMs on the tensor cores, ``tc_ops``), each is taken with
-    the bytes and the smaller bound is the shape's."""
-    t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
-    forms = [(r["ops"] / INT32_OPS_S * 1e3, "integer pipe")]
-    if "tc_ops" in r:
-        forms.append((r["tc_ops"] / INT8_TC_OPS_S * 1e3, "int8 tensor cores"))
-    t_ops, form = min(forms)
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            form)
+    """(bound_ms, bound_by, formulation) of a timed shape on the H100:
+    ``attribution.bound``."""
+    return attribution().bound(r)
 
 
 def main() -> int:
@@ -1823,9 +2003,29 @@ def main() -> int:
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        phase_journal_cost(dev, outdir)
+        cost = phase_journal_cost(dev, outdir)
+        # Phase 10: the telemetry on the G = 99 resume (both routes) and on
+        # DES S1 (device route), each a counted path.
+        traced = {}
+        for name in TRACED_RUNS:
+            ref = cost.get(name, {}).get("wall")
+            paths[f"traced_{name}"] = on_path(f"traced_{name}", lambda n=name, r=ref:
+                                              traced.update({n: phase_traced(dev, outdir, n, r)}))
+            if name.startswith("g99"):
+                traced[name]["syncs"] = phase_traced_syncs(dev, outdir, name)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
+    k3 = traced["des_s1"]["row"]
+    log(f"phase 10b K3 attribution row (DES S1, N = 2^17 x 64 rows): "
+        f"{k3['dispatches']} launches, "
+        f"{1e3 * k3['mean_dispatch_latency_s']:.5f} ms per launch by CUDA events "
+        f"around the launch in its entry point against a bound of {1e3 * k3['bound_s']:.5f} ms "
+        f"(phase 2's profiler: {par['lut5_filter']['device_ms']} device ms)")
+    for name in TRACED_RUNS:
+        kernel, launches = TRACED_RUNS[name][6:8]
+        if paths[f"traced_{name}"][kernel] != launches:
+            raise AssertionError(f"10 {name}: {paths[f'traced_{name}'][kernel]} "
+                                 f"{kernel} launches, expected {launches}")
 
     kernels = []
     for name, (route, source, replaces, home) in KERNELS.items():

@@ -9,8 +9,8 @@ CUDA stream travel as ``c_void_p``, and each entry point returns
 ``cudaGetLastError()`` so a refused launch raises here instead of failing
 silently.
 
-The build is keyed on a digest of the sources (a changed ``.cu`` file
-rebuilds), runs under an exclusive file lock on the build directory (so
+The build is keyed on a digest of the sources and their headers (a changed
+``.cu`` or ``.cuh`` file rebuilds), runs under an exclusive file lock on the build directory (so
 concurrent processes compile once), lands in a temporary name first and is
 moved into place atomically, so no process loads a half-written library.
 Nothing here runs at import time: the CPU test suite imports every module of
@@ -45,36 +45,44 @@ _lib: Optional[ctypes.CDLL] = None
 #: library, and the compiler's resource report (``-Xptxas -v``).
 build_info: dict = {}
 
+#: Builds that compiled in this process (``utils.guards.recompile_guard``).
+compiles = 0
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signatures of the entry points (all return cudaError_t as int).
+#: C signatures of the entry points (all return cudaError_t as int).  ``ev0``
+#: and ``ev1``: the launch's timing events, or None (csrc/launch_timing.cuh).
 _SIGNATURES = {
-    # tables, n_tables, combos, n, target, mask, req1, req0, stream
-    "sbgt_lut5_filter": [_P, _I, _P, _I, _P, _P, _P, _P, _P],
+    # tables, n_tables, combos, n, target, mask, req1, req0, stream, ev0, ev1
+    "sbgt_lut5_filter": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     # l1, l0, l_plane_stride, hcs, h_plane_stride, pmw, tl, th,
     # req1, req0, stream
     "sbgt_pivot_packed": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
     # tables, l1, l0, l_plane_stride, hcs, h_plane_stride, lowvalid,
     # highvalid, descs, t0, n, t_end, tl, th, req1, req0, feas, counts,
-    # stream
+    # stream, ev0, ev1
     "sbgt_pivot_window": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _P, _P, _P, _P, _P],
+                          _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # lhs1, lhs0, rhsb, tl, th, req1, req0, stream
     "sbgt_pivot_pre": [_P, _P, _P, _I, _I, _P, _P, _P],
     # tables, l1, l0, hc, rows, lowvalid, highvalid, descs, t0, n, t_end,
-    # tl, th, req1, req0, feas, counts, stream
+    # tl, th, req1, req0, feas, counts, stream, ev0, ev1
     "sbgt_pivot_pre_window": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P],
-    # tables, n_gates, spectrum, out, stream
-    "sbgt_walsh_scores": [_P, _I, _P, _P, _P],
+                              _I, _P, _P, _P, _P, _P, _P, _P],
+    # tables, n_gates, spectrum, out, stream, ev0, ev1
+    "sbgt_walsh_scores": [_P, _I, _P, _P, _P, _P, _P],
     # prog, n_prog, n_in, out_slots, n_out, inputs, w, out, threads, smem,
-    # stream
-    "sbgt_circuit_eval": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
+    # stream, ev0, ev1
+    "sbgt_circuit_eval": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
 }
 
 
 def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def _digest(srcs) -> str:
@@ -120,7 +128,7 @@ def build(force: bool = False) -> str:
 def _build_locked(srcs, force: bool) -> str:
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = os.path.join(BUILD_DIR, LIB_NAME + ".digest")
-    digest = _digest(srcs)
+    digest = _digest(srcs + headers())
     t0 = time.perf_counter()
     if not force and os.path.exists(lib_path) and os.path.exists(stamp):
         with open(stamp) as f:
@@ -163,6 +171,8 @@ def _build_locked(srcs, force: bool) -> str:
         os.replace(stamp + ".tmp", stamp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    global compiles
+    compiles += 1
     build_info.update(
         seconds=time.perf_counter() - t0, compiled=True,
         ptxas="\n".join(reports),

@@ -36,13 +36,23 @@ or the JAX CLI's, to the files the uninterrupted run writes.
 ``--dispatch-timeout`` arms the hung-sweep deadline (retries, then the host
 chunk stream), and ``SBG_FAULTS`` the fault sites
 (``resilience/faults.py``).
+
+Telemetry, as in the JAX CLI: with an explicit ``--output-dir`` (or
+``--resume-run``) a run also writes the heartbeat ``telemetry.jsonl``
+(``--metrics-interval``) and an atomic ``metrics.json`` at exit, and an
+incident (deadline exhaustion, breaker trip, injected crash, ``SIGTERM``,
+fatal exception) leaves a flight-recorder dump there; ``--trace [FILE]``
+exports a Perfetto trace, ``--status-port`` serves ``/status``.  None of it
+changes a result.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 import sys
+import threading
 from typing import List, Optional
 
 from .core import boolfunc as bf
@@ -120,6 +130,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "breach retries with backoff, then the search "
                         "degrades to the host chunk stream for the rest of "
                         "the run")
+    p.add_argument("--trace", nargs="?", const="", default=None,
+                   metavar="FILE",
+                   help="record structured spans (every dispatch, "
+                        "deadline window, journal write) and export a "
+                        "Chrome/Perfetto trace.json at exit (to FILE, "
+                        "default trace.json in --output-dir); purely "
+                        "observational — results are bit-identical with "
+                        "or without it")
+    p.add_argument("--status-port", type=int, default=None, metavar="PORT",
+                   help="serve a read-only live-introspection endpoint "
+                        "on http://127.0.0.1:PORT/status — a JSON "
+                        "snapshot of counters, histogram quantiles, "
+                        "search-space coverage with derived ETA, "
+                        "breaker state, and the per-kernel roofline "
+                        "attribution table; 0 binds an ephemeral port "
+                        "(reported in the heartbeat start line's "
+                        "config).  Observation-only: results are "
+                        "bit-identical with or without it")
+    p.add_argument("--metrics-interval", type=float, default=60.0,
+                   metavar="S",
+                   help="telemetry heartbeat period in seconds (default "
+                        "60): with an explicit --output-dir, a "
+                        "background thread appends one fsync'd counter "
+                        "line per period to telemetry.jsonl and an "
+                        "atomic metrics.json snapshot is written at "
+                        "exit; 0 disables the periodic line (the final "
+                        "snapshot is still written)")
     return p
 
 
@@ -291,6 +328,10 @@ def _probe_device(name: str) -> Optional[str]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    # Telemetry files (heartbeat, metrics.json, flight dumps) live with the
+    # journal in an explicit --output-dir (--resume-run implies one); the
+    # cwd default must not sprout them wherever the tool runs.
+    outdir_explicit = args.output_dir is not None or args.resume_run is not None
     # The JAX CLI's values of the flags the port has not ported: the
     # journal records them.
     for key, value in UNPORTED_KEYS.items():
@@ -328,6 +369,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _err("Cannot combine -g with multiple S-box files.")
     if args.candidate_order not in ("lex", "spectral"):
         return _err(f"Bad candidate order value: {args.candidate_order}")
+    if args.metrics_interval < 0:
+        return _err(f"Bad metrics interval value: {args.metrics_interval}")
+    if args.status_port is not None and not (0 <= args.status_port <= 65535):
+        return _err(f"Bad status port value: {args.status_port}")
     if multibox:
         return _err(
             "Error: several S-box files in one run are not ported yet; run "
@@ -413,57 +458,191 @@ def main(argv: Optional[List[str]] = None) -> int:
         native=native,
         pipeline_depth=args.pipeline_depth,
         dispatch_timeout_s=args.dispatch_timeout,
+        trace=args.trace is not None,
+        status_port=args.status_port,
     )
     try:
         ctx = SearchContext(opt)
     except RuntimeError as e:
         return _err(f"Error: {e}")
 
-    if args.graph is None:
-        st = State.init_inputs(num_inputs)
-    else:
-        try:
-            st = load_state(args.graph)
-        except (OSError, StateLoadError) as e:
-            return _err(f"Error when reading state file {args.graph}: {e}")
+    # The journal's recorded configuration (the JAX CLI's): also the
+    # heartbeat start line's config.
+    run_config = {key: getattr(args, key) for key in JOURNAL_CONFIG_KEYS}
+    run_config["input"] = [os.path.abspath(p) for p in args.input]
+    run_config["graph"] = (
+        os.path.abspath(args.graph) if args.graph is not None else None
+    )
+    tele = _Telemetry(ctx, args, run_config,
+                      args.output_dir if outdir_explicit else None)
+    try:
+        if args.graph is None:
+            st = State.init_inputs(num_inputs)
+        else:
+            try:
+                st = load_state(args.graph)
+            except (OSError, StateLoadError) as e:
+                return _err(f"Error when reading state file {args.graph}: {e}")
 
-    journal = args.journal
-    if journal is None:
-        from .resilience.journal import SearchJournal
+        journal = args.journal
+        if journal is None:
+            from .resilience.journal import SearchJournal
 
-        config = {key: getattr(args, key) for key in JOURNAL_CONFIG_KEYS}
-        config["input"] = [os.path.abspath(p) for p in args.input]
-        config["graph"] = (
-            os.path.abspath(args.graph) if args.graph is not None else None
-        )
-        journal = SearchJournal.start(args.output_dir, config=config)
-    if args.graph is not None:
-        print(f"Loaded {args.graph}.")
+            journal = SearchJournal.start(args.output_dir, config=run_config)
+        if args.graph is not None:
+            print(f"Loaded {args.graph}.")
 
-    if args.verbose >= 1:
-        # The reference's listing, trailing spaces included
-        # (sboxgates.c:1080-1094).
-        print("Available gates: NOT " + "".join(
-            bf.GATE_NAMES[f.fun] + " " for f in ctx.avail_gates))
-        print("Generated gates: " + "".join(
-            bf.GATE_NAMES[f.fun] + " " for f in ctx.avail_not))
-        print("Generated 3-input gates: " + "".join(
-            "%02x " % f.fun for f in ctx.avail_3))
+        if args.verbose >= 1:
+            # The reference's listing, trailing spaces included
+            # (sboxgates.c:1080-1094).
+            print("Available gates: NOT " + "".join(
+                bf.GATE_NAMES[f.fun] + " " for f in ctx.avail_gates))
+            print("Generated gates: " + "".join(
+                bf.GATE_NAMES[f.fun] + " " for f in ctx.avail_not))
+            print("Generated 3-input gates: " + "".join(
+                "%02x " % f.fun for f in ctx.avail_3))
 
-    if args.single_output != -1:
-        generate_graph_one_output(
-            ctx, st, targets, args.single_output, save_dir=args.output_dir,
-            journal=journal,
-        )
-    else:
-        generate_graph(ctx, st, targets, save_dir=args.output_dir,
-                       journal=journal)
-    if args.verbose >= 2:
-        print("")
-        print("stats: " + " ".join(
-            f"{k}={v}" for k, v in sorted(ctx.stats.items())
-        ))
-    return 0
+        if args.single_output != -1:
+            generate_graph_one_output(
+                ctx, st, targets, args.single_output, save_dir=args.output_dir,
+                journal=journal,
+            )
+        else:
+            generate_graph(ctx, st, targets, save_dir=args.output_dir,
+                           journal=journal)
+        tele.teardown()
+        if args.verbose >= 2:
+            print("")
+            print("stats: " + " ".join(
+                f"{k}={v}" for k, v in sorted(ctx.stats.items())
+            ))
+            # The JAX CLI's per-phase report.
+            print("")
+            print(ctx.prof.report(ctx.stats))
+        return 0
+    except BaseException as e:
+        if not isinstance(e, SystemExit):
+            # Dump before the teardown: the heartbeat's incident hook is
+            # still registered, so the dump also writes an incident line.
+            from .telemetry import flight as _flight
+
+            _flight.flight_dump(
+                "fatal_exception", registry=ctx.stats,
+                extra={"error": repr(e)},
+            )
+        raise
+    finally:
+        tele.teardown()
+
+
+class _Telemetry:
+    """One run's telemetry, as the JAX CLI wires it: the ``/status``
+    endpoint (``--status-port``, started first so its bound port rides the
+    heartbeat's start line), the flight recorder and the heartbeat in
+    ``tele_dir`` (an explicit ``--output-dir``; resume-aware), the
+    ``SIGTERM`` dump, and :meth:`teardown`, which runs once on every exit
+    path."""
+
+    #: Bounded grace of the SIGTERM dump's worker (a managed host's
+    #: SIGTERM-to-SIGKILL window is typically 15-30 s).
+    SIGNAL_DUMP_JOIN_S = 15.0
+
+    def __init__(self, ctx, args, run_config: dict, tele_dir: Optional[str]):
+        from .telemetry import flight as _flight
+        from .telemetry.heartbeat import Heartbeat
+        from .telemetry.status import StatusServer
+
+        self.ctx = ctx
+        self.args = args
+        self.tele_dir = tele_dir
+        self._done = False
+        self.status_server = None
+        if ctx.opt.status_port is not None:
+            self.status_server = StatusServer(
+                ctx.stats, port=ctx.opt.status_port,
+                extra={"engine": ctx.status_state},
+                gates_fn=lambda: ctx.last_dispatch_gates,
+            ).start()
+            print("Status endpoint on "
+                  f"http://127.0.0.1:{self.status_server.port}/status")
+        self.heartbeat = None
+        if tele_dir is not None:
+            _flight.configure(tele_dir)
+            hb_config = run_config
+            if self.status_server is not None:
+                # A copy: the journal's config never records the port.
+                hb_config = dict(run_config, status_port=self.status_server.port)
+            self.heartbeat = Heartbeat(
+                ctx.stats, tele_dir, interval_s=args.metrics_interval, rank=0,
+                resume=args.resume_run is not None, run_config=hb_config,
+            ).start()
+        # Preemption delivers SIGTERM before the kill: the dump and the
+        # whole teardown run on a worker thread with a bounded join (the
+        # handler interrupts the main thread, which may hold a telemetry
+        # lock), then the signal is raised again with its default action,
+        # so the exit status still says SIGTERM.  SIGINT keeps Python's
+        # KeyboardInterrupt, which reaches the fatal-exception dump.
+        self._prev_handlers = {}
+        if threading.current_thread() is threading.main_thread():
+            try:
+                self._prev_handlers[signal.SIGTERM] = signal.signal(
+                    signal.SIGTERM, self._on_signal
+                )
+            except (ValueError, OSError):
+                pass
+
+    def _on_signal(self, signum, frame) -> None:
+        from .telemetry import flight as _flight
+
+        name = signal.Signals(signum).name
+
+        def work() -> None:
+            path = _flight.flight_dump(
+                f"signal:{name}", registry=self.ctx.stats,
+                extra={"signal": name},
+            )
+            if path is not None:
+                self.ctx.stats.inc("flight_dumps")
+            self.teardown()
+
+        t = threading.Thread(target=work, name="sbg-signal-dump", daemon=True)
+        t.start()
+        t.join(self.SIGNAL_DUMP_JOIN_S)
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+
+    def teardown(self) -> None:
+        """Restores the signal handler, stops ``/status``, reads the launch
+        times never synced, writes the heartbeat's final line and
+        ``metrics.json``, exports the trace, and clears the process-global
+        tracer and flight recorder for a later run in this process.
+        Runs once (a flag, not a lock: the SIGTERM worker may run it while
+        the interrupted main thread is inside it)."""
+        if self._done:
+            return
+        self._done = True
+        from .telemetry import flight as _flight
+        from .telemetry import trace as _trace
+
+        for sig, prev in self._prev_handlers.items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
+        if self.status_server is not None:
+            self.status_server.shutdown()
+        self.ctx.close_telemetry()
+        if self.heartbeat is not None:
+            self.heartbeat.stop()
+        if self.args.trace is not None:
+            out = self.args.trace or os.path.join(
+                self.tele_dir if self.tele_dir is not None else ".", "trace.json"
+            )
+            print(f"Trace written to {_trace.tracer().export(out)}.")
+            _trace.tracer().enabled = False
+            _trace.tracer().reset()
+        _flight.configure(None)
+        _flight.flight_recorder().reset()
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import torch
 from .. import _kernels
 from ..core import boolfunc as bf
 from ..graph.state import State
+from ..telemetry import attribution as _tattr
 from .executor import compile_circuit, gate_arrays, output_bits
 
 #: Kernel launches by the functions :func:`compile_cuda` returns (the plain
@@ -189,18 +190,23 @@ def compile_cuda(st: State, device="cuda") -> Callable:
             )
         if inputs.device != prog.device:
             raise ValueError(f"inputs on {inputs.device}, circuit on {prog.device}")
+        w = inputs.shape[1]
+        timed = _tattr.launch(
+            "circuit_eval", f"{n_in}x{n_out}x{n_prog}x{w}",
+            lambda: _tattr.circuit_cost(n_in, n_out, n_prog, w), inputs)
         if not inputs.is_cuda:
-            return plain(inputs)
+            with timed:
+                return plain(inputs)
         if not inputs.is_contiguous():
             raise ValueError("circuit inputs must be contiguous")
-        w = inputs.shape[1]
         out = torch.empty((n_out, w), dtype=torch.int32, device=inputs.device)
-        err = _kernels.lib().sbgt_circuit_eval(
+        fn, args = _kernels.lib().sbgt_circuit_eval, (
             prog.data_ptr(), n_prog, n_in, outs.data_ptr(), n_out,
             inputs.data_ptr(), w, out.data_ptr(), threads, smem,
             _kernels.stream_ptr(inputs.device),
         )
-        _kernels.check(err, "circuit_eval")
+        with timed as events:
+            _kernels.check(fn(*args, *events), "circuit_eval")
         launches += 1
         return out
 

@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_timing.cuh"
+
 namespace {
 
 constexpr int kWordsPerThread = 4;
@@ -196,17 +198,18 @@ circuit_eval_kernel(const uint4* __restrict__ prog, int n_prog, int n_in,
 template <bool kVec>
 int launch(const void* prog, int n_prog, int n_in, const void* outs, int n_out,
            const void* inputs, int w, void* out, int threads, int smem,
-           cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
+           cudaStream_t stream, void* ev0, void* ev1) {
+  cudaError_t e = cudaFuncSetAttribute(
       circuit_eval_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
+  if (e == cudaSuccess) e = sbgt_record(ev0, stream);
   if (e != cudaSuccess) return (int)e;
   const long long per_block = (long long)threads * kWordsPerThread;
   const int blocks = (int)((w + per_block - 1) / per_block);
   circuit_eval_kernel<kVec><<<blocks, threads, smem, stream>>>(
       (const uint4*)prog, n_prog, n_in, (const int32_t*)outs, n_out,
       (const uint32_t*)inputs, w, (uint32_t*)out);
-  return (int)cudaGetLastError();
+  return sbgt_launched(ev1, stream);
 }
 
 }  // namespace
@@ -218,16 +221,18 @@ int launch(const void* prog, int n_prog, int n_in, const void* outs, int n_out,
 // aligned.  The dynamic shared-memory limit is raised to smem on every
 // launch: the attribute is per device, and the call is cheap.  A size the
 // card cannot give fails here.
+// ev0/ev1: the launch's timing events or null (launch_timing.cuh).
 extern "C" int sbgt_circuit_eval(const void* prog, int n_prog, int n_in,
                                  const void* outs, int n_out,
                                  const void* inputs, int w, void* out,
-                                 int threads, int smem, void* stream) {
-  if (w <= 0 || n_out <= 0) return 0;
+                                 int threads, int smem, void* stream,
+                                 void* ev0, void* ev1) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (w <= 0 || n_out <= 0) return sbgt_no_launch(ev0, ev1, s);
   const bool vec = w % 4 == 0 && ((uintptr_t)inputs & 15) == 0 &&
                    ((uintptr_t)out & 15) == 0;
-  cudaStream_t s = (cudaStream_t)stream;
   return vec ? launch<true>(prog, n_prog, n_in, outs, n_out, inputs, w, out,
-                            threads, smem, s)
+                            threads, smem, s, ev0, ev1)
              : launch<false>(prog, n_prog, n_in, outs, n_out, inputs, w, out,
-                             threads, smem, s);
+                             threads, smem, s, ev0, ev1);
 }

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_timing.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -108,18 +110,22 @@ lut5_filter_kernel(const uint32_t* __restrict__ tables, int n_tables,
 
 }  // namespace
 
+// ev0/ev1: the launch's timing events or null (launch_timing.cuh).
 extern "C" int sbgt_lut5_filter(const void* tables, int n_tables,
                                 const void* combos, int n, const void* target,
                                 const void* mask, void* req1, void* req0,
-                                void* stream) {
-  if (n <= 0) return 0;
+                                void* stream, void* ev0, void* ev1) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return sbgt_no_launch(ev0, ev1, s);
   const int blocks = (n + kThreads - 1) / kThreads;
   const size_t smem = (size_t)n_tables * kWords * sizeof(uint32_t);
-  lut5_filter_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  const cudaError_t e = sbgt_record(ev0, s);
+  if (e != cudaSuccess) return (int)e;
+  lut5_filter_kernel<<<blocks, kThreads, smem, s>>>(
       (const uint32_t*)tables, n_tables, (const int32_t*)combos, n,
       (const uint32_t*)target, (const uint32_t*)mask, (uint32_t*)req1,
       (uint32_t*)req0);
-  return (int)cudaGetLastError();
+  return sbgt_launched(ev1, s);
 }
 
 extern "C" const char* sbgt_error_string(int err) {

@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_timing.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;            // 16 warps
@@ -377,7 +379,8 @@ __global__ void __launch_bounds__(kThreads, 1) pivot_pre_kernel(Params p) {
 }
 
 template <bool kFolded>
-int launch(const Params& p, cudaStream_t stream) {
+int launch(const Params& p, cudaStream_t stream, void* ev0 = nullptr,
+           void* ev1 = nullptr) {
   const int nly = (p.tl + Shape<kFolded>::kBL - 1) / Shape<kFolded>::kBL;
   const int nhx = (p.th + kBH - 1) / kBH;
   const long long n_items = (long long)p.n * nly * nhx;
@@ -390,10 +393,11 @@ int launch(const Params& p, cudaStream_t stream) {
     e = cudaFuncSetAttribute(pivot_pre_kernel<kFolded>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              2 * kStage);
+  if (e == cudaSuccess) e = sbgt_record(ev0, stream);
   if (e != cudaSuccess) return (int)e;
   const int grid = (int)(n_items < sms ? n_items : sms);
   pivot_pre_kernel<kFolded><<<grid, kThreads, 2 * kStage, stream>>>(p);
-  return (int)cudaGetLastError();
+  return sbgt_launched(ev1, stream);
 }
 
 }  // namespace
@@ -424,16 +428,19 @@ extern "C" int sbgt_pivot_pre(const void* lhs1, const void* lhs0,
 // cell plane), tables uint32[*, 8] (the pivot polarity), tiles [t0, t0 + n)
 // of descs (only rows below t_end read) -> req1/req0 uint32[n, tl, th],
 // feas uint8[n, tl, th], counts int32[n] (zeroed here, on the stream).
+// ev0/ev1: the launch's timing events or null (launch_timing.cuh).
 extern "C" int sbgt_pivot_pre_window(const void* tables, const void* l1,
                                      const void* l0, const void* hc, int rows,
                                      const void* lowvalid,
                                      const void* highvalid, const void* descs,
                                      int t0, int n, int t_end, int tl, int th,
                                      void* req1, void* req0, void* feas,
-                                     void* counts, void* stream) {
-  if (n <= 0 || tl <= 0 || th <= 0) return 0;
-  const cudaError_t e = cudaMemsetAsync(counts, 0, (size_t)n * sizeof(int32_t),
-                                        (cudaStream_t)stream);
+                                     void* counts, void* stream, void* ev0,
+                                     void* ev1) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || tl <= 0 || th <= 0) return sbgt_no_launch(ev0, ev1, s);
+  const cudaError_t e =
+      cudaMemsetAsync(counts, 0, (size_t)n * sizeof(int32_t), s);
   if (e != cudaSuccess) return (int)e;
   Params p{};
   p.a[0] = (const int8_t*)l1;
@@ -454,5 +461,5 @@ extern "C" int sbgt_pivot_pre_window(const void* tables, const void* l1,
   p.req0 = (uint32_t*)req0;
   p.feas = (uint8_t*)feas;
   p.counts = (int32_t*)counts;
-  return launch<false>(p, (cudaStream_t)stream);
+  return launch<false>(p, s, ev0, ev1);
 }

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_timing.cuh"
+
 namespace {
 
 constexpr int kBH = 128;  // threads per block = high rows per block
@@ -256,22 +258,25 @@ extern "C" int sbgt_pivot_packed(const void* l1, const void* l0, int lstride,
 // tiles [t0, t0 + n) of descs (int32[*, 5], only rows below t_end are read):
 // req1/req0 uint32[n, tl, th], feas uint8[n, tl, th], counts int32[n]
 // (zeroed here, on the same stream).
+// ev0/ev1: the launch's timing events or null (launch_timing.cuh).
 extern "C" int sbgt_pivot_window(const void* tables, const void* l1,
                                  const void* l0, int lstride, const void* hcs,
                                  int hstride, const void* lowvalid,
                                  const void* highvalid, const void* descs,
                                  int t0, int n, int t_end, int tl, int th,
                                  void* req1, void* req0, void* feas,
-                                 void* counts, void* stream) {
-  if (n <= 0 || tl <= 0 || th <= 0) return 0;
-  const cudaError_t e = cudaMemsetAsync(counts, 0, (size_t)n * sizeof(int32_t),
-                                        (cudaStream_t)stream);
+                                 void* counts, void* stream, void* ev0,
+                                 void* ev1) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || tl <= 0 || th <= 0) return sbgt_no_launch(ev0, ev1, s);
+  cudaError_t e = cudaMemsetAsync(counts, 0, (size_t)n * sizeof(int32_t), s);
+  if (e == cudaSuccess) e = sbgt_record(ev0, s);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((th + kBH - 1) / kBH, (tl + kBL - 1) / kBL, n);
-  pivot_window_kernel<<<grid, kBH, 0, (cudaStream_t)stream>>>(
+  pivot_window_kernel<<<grid, kBH, 0, s>>>(
       (const uint32_t*)tables, (const uint32_t*)l1, (const uint32_t*)l0,
       lstride, (const uint32_t*)hcs, hstride, (const uint8_t*)lowvalid,
       (const uint8_t*)highvalid, (const int32_t*)descs, t0, t_end, tl, th,
       (uint32_t*)req1, (uint32_t*)req0, (uint8_t*)feas, (int32_t*)counts);
-  return (int)cudaGetLastError();
+  return sbgt_launched(ev1, s);
 }

@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_timing.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -99,18 +101,21 @@ walsh_score_kernel(const uint4* __restrict__ tables, int n_gates,
 
 }  // namespace
 
+// ev0/ev1: the launch's timing events or null (launch_timing.cuh).
 extern "C" int sbgt_walsh_scores(const void* tables, int n_gates,
                                  const void* spectrum, void* out,
-                                 void* stream) {
-  if (n_gates <= 0) return 0;
+                                 void* stream, void* ev0, void* ev1) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_gates <= 0) return sbgt_no_launch(ev0, ev1, s);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = sbgt_record(ev0, s);
   if (e != cudaSuccess) return (int)e;
   int blocks = (n_gates + kThreads - 1) / kThreads;
   if (blocks > kBlocksPerSm * sms) blocks = kBlocksPerSm * sms;
-  walsh_score_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  walsh_score_kernel<<<blocks, kThreads, 0, s>>>(
       (const uint4*)tables, n_gates, (const int32_t*)spectrum, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return sbgt_launched(ev1, s);
 }

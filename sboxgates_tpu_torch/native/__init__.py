@@ -57,6 +57,9 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 
+#: Builds that compiled in this process (``utils.guards.recompile_guard``).
+compiles = 0
+
 
 _logger = logging.getLogger(__name__)
 
@@ -85,6 +88,16 @@ def _note_service_failure(exc: BaseException) -> None:
     with _SERVICE_FAIL_LOCK:
         _SERVICE_FAILURES += 1
         n = _SERVICE_FAILURES
+    # Structured telemetry beside the stderr line: a process-global counter
+    # (heartbeat lines and metrics.json carry it under "process") and a
+    # trace and flight-ring instant.
+    from ..telemetry import metrics as _tmetrics
+    from ..telemetry import trace as _ttrace
+
+    _tmetrics.GLOBAL.inc("native_service_failures")
+    _ttrace.instant(
+        "native.service_failure", "fallback", error=repr(exc)[:200], n=n
+    )
     if n <= _SERVICE_FAIL_PRINT_FIRST or n % _SERVICE_FAIL_PRINT_EVERY == 0:
         print(
             f"sboxgates_tpu_torch: device-work service failed inside the "
@@ -250,6 +263,8 @@ def _build_locked() -> str:
         os.replace(os.path.join(tmp, "digest"), stamp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    global compiles
+    compiles += 1
     return out
 
 

@@ -15,8 +15,9 @@ import functools
 import itertools
 import queue as _queue
 import threading
+import time
 from math import comb
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -199,6 +200,11 @@ class ChunkPrefetcher:
     is raised by the ``get()`` that would have returned the failed chunk.
     ``close()`` (also on ``__exit__``) stops the worker and is idempotent.
     One consumer thread per instance.
+
+    ``on_produce(start, end)`` receives each chunk's production span
+    (``perf_counter`` times, on the producer thread) and ``on_stall(start,
+    end)`` each ``get()``'s blocked span: the profiler's overlap
+    accounting.
     """
 
     def __init__(
@@ -207,8 +213,12 @@ class ChunkPrefetcher:
         chunk_size: int,
         exclude: Sequence[int] = (),
         depth: int = 2,
+        on_produce: Optional[Callable[[float, float], None]] = None,
+        on_stall: Optional[Callable[[float, float], None]] = None,
     ):
         self.stream = stream
+        self.on_produce = on_produce
+        self.on_stall = on_stall
         self.chunk_size = chunk_size
         self.exclude = [int(b) for b in exclude]
         self.depth = max(1, int(depth))
@@ -230,10 +240,14 @@ class ChunkPrefetcher:
         from ..resilience.faults import fault_point
 
         fault_point("prefetch.produce")
+        t0 = time.perf_counter()
         chunk = self.stream.next_chunk(self.chunk_size)
-        if chunk is None:
-            return None
-        return pad_rows(filter_exclude(chunk, self.exclude), self.chunk_size)
+        item = None if chunk is None else pad_rows(
+            filter_exclude(chunk, self.exclude), self.chunk_size
+        )
+        if self.on_produce is not None:
+            self.on_produce(t0, time.perf_counter())
+        return item
 
     def _work(self) -> None:
         try:
@@ -260,7 +274,10 @@ class ChunkPrefetcher:
         """Next (padded, valid_count) in stream order; None at the end."""
         if self._done:
             return None
+        t0 = time.perf_counter()
         item = self._produce_one() if self._inline else self._q.get()
+        if self.on_stall is not None:
+            self.on_stall(t0, time.perf_counter())
         if item is None:
             self._done = True
             if not self._inline and self._exc is not None:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from ..telemetry import attribution as _tattr
 
 #: Kernel launches by :func:`lut5_filter_cells` (the plain version and the
 #: CPU path do not count).
@@ -121,16 +122,20 @@ def lut5_filter_cells(tables, combos, target, mask):
     ``lut5_filter_cells(tables[combos] transposed, target, mask)``."""
     global launches
     _check(tables, combos, target, mask)
+    n, b = combos.shape[0], tables.shape[0]
+    timed = _tattr.launch("lut5_filter", f"{n}x{b}",
+                          lambda: _tattr.filter_cost(n, b), tables)
     if not tables.is_cuda:
-        return lut5_filter_cells_plain(tables, combos, target, mask)
-    n = combos.shape[0]
+        with timed:
+            return lut5_filter_cells_plain(tables, combos, target, mask)
     req1 = torch.empty(n, dtype=torch.int32, device=tables.device)
     req0 = torch.empty_like(req1)
-    err = _kernels.lib().sbgt_lut5_filter(
-        tables.data_ptr(), tables.shape[0], combos.data_ptr(), n,
-        target.data_ptr(), mask.data_ptr(), req1.data_ptr(), req0.data_ptr(),
+    fn, args = _kernels.lib().sbgt_lut5_filter, (
+        tables.data_ptr(), b, combos.data_ptr(), n, target.data_ptr(),
+        mask.data_ptr(), req1.data_ptr(), req0.data_ptr(),
         _kernels.stream_ptr(tables.device),
     )
-    _kernels.check(err, "lut5_filter_cells")
+    with timed as events:
+        _kernels.check(fn(*args, *events), "lut5_filter_cells")
     launches += 1
     return req1, req0

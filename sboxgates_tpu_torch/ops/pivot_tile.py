@@ -23,7 +23,10 @@ operations, K1 by 32-bit logic operations (about 580 per candidate against
 
 Words are int32 bit patterns.  On a CUDA tensor the wrappers launch the
 kernel or raise; the plain versions run only for CPU tensors (and in the
-comparisons of the tests and ``chip_smoke.py``).
+comparisons of the tests and ``chip_smoke.py``).  Each window launch (or,
+on the CPU, plain-version call) is timed by
+:func:`telemetry.attribution.launch` when a search dispatch records it: on
+the card the entry point records the event pair around its launch.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..telemetry import attribution as _tattr
 
 #: Kernel launches: ``"packed"`` by :func:`pivot_window` (K1 as the sweep
 #: runs it, one launch per window of tiles), ``"pre"`` by
@@ -293,20 +297,24 @@ def pivot_window(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n,
     req1, req0, feas = (b[:n] for b in out)
     if req1.shape != (n, tl, th) or feas.dtype != torch.bool:
         raise ValueError("window buffers do not fit the window")
+    timed = _tattr.launch("pivot_window", f"{n}x{tl}x{th}",
+                          lambda: _tattr.window_cost(n, tl, th, "packed"), lc1)
     if not lc1.is_cuda:
-        return pivot_window_plain(
-            tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n, t_end, tl,
-            th, out=out,
-        )
+        with timed:
+            return pivot_window_plain(
+                tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n, t_end,
+                tl, th, out=out,
+            )
     counts = torch.empty(n, dtype=torch.int32, device=dev)
-    err = _kernels.lib().sbgt_pivot_window(
+    fn, args = _kernels.lib().sbgt_pivot_window, (
         tables.data_ptr(), lc1.data_ptr(), lc0.data_ptr(), lc1.stride(0),
         hc.data_ptr(), hc.stride(0), lowvalid.data_ptr(), highvalid.data_ptr(),
         descs.data_ptr(), t0, n, t_end, tl, th, req1.data_ptr(),
         req0.data_ptr(), feas.data_ptr(), counts.data_ptr(),
         _kernels.stream_ptr(dev),
     )
-    _kernels.check(err, "pivot_window")
+    with timed as events:
+        _kernels.check(fn(*args, *events), "pivot_window")
     launches["packed"] += 1
     tiles["packed"] += n
     return req1, req0, feas, counts
@@ -357,20 +365,24 @@ def pivot_pre_window(tables, l1, l0, hc, lowvalid, highvalid, descs, t0, n,
     req1, req0, feas = (b[:n] for b in out)
     if req1.shape != (n, tl, th) or feas.dtype != torch.bool:
         raise ValueError("window buffers do not fit the window")
+    timed = _tattr.launch("pivot_pre_window", f"{n}x{tl}x{th}",
+                          lambda: _tattr.window_cost(n, tl, th, "pre"), l1)
     if not l1.is_cuda:
-        return pivot_pre_window_plain(
-            tables, l1, l0, hc, lowvalid, highvalid, descs, t0, n, t_end, tl,
-            th, out=out,
-        )
+        with timed:
+            return pivot_pre_window_plain(
+                tables, l1, l0, hc, lowvalid, highvalid, descs, t0, n, t_end,
+                tl, th, out=out,
+            )
     counts = torch.empty(n, dtype=torch.int32, device=dev)
-    err = _kernels.lib().sbgt_pivot_pre_window(
+    fn, args = _kernels.lib().sbgt_pivot_pre_window, (
         tables.data_ptr(), l1.data_ptr(), l0.data_ptr(), hc.data_ptr(),
         l1.shape[1], lowvalid.data_ptr(), highvalid.data_ptr(),
         descs.data_ptr(), t0, n, t_end, tl, th, req1.data_ptr(),
         req0.data_ptr(), feas.data_ptr(), counts.data_ptr(),
         _kernels.stream_ptr(dev),
     )
-    _kernels.check(err, "pivot_pre_window")
+    with timed as events:
+        _kernels.check(fn(*args, *events), "pivot_pre_window")
     launches["pre"] += 1
     tiles["pre"] += n
     return req1, req0, feas, counts

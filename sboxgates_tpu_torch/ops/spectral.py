@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..telemetry import attribution as _tattr
 from .lut5_filter import cells_t
 
 #: Largest rank-space size the stream drivers score spectrally; beyond it
@@ -111,21 +112,32 @@ def _check(tables, spectrum):
         raise ValueError("gate_scores_kernel: tables must be 16-byte aligned")
 
 
+def _sms(t: torch.Tensor) -> int:
+    """SMs of ``t``'s card (K5's grid size); the H100's on the CPU."""
+    if not t.is_cuda:
+        return _tattr.H100_SMS
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def gate_scores_kernel(tables: torch.Tensor, spectrum: torch.Tensor) -> torch.Tensor:
     """K5: int32[B] scores of the gate tables ``tables`` int32[B, 8]
     against ``spectrum`` int32[256].  Bit-identical to the JAX package's
     ``_gate_scores_pallas`` and ``_gate_scores_xla``."""
     global launches
     _check(tables, spectrum)
-    if not tables.is_cuda:
-        return gate_scores_plain(tables, spectrum)
     b = tables.shape[0]
+    timed = _tattr.launch("walsh_score", f"{b}",
+                          lambda: _tattr.walsh_cost(b, _sms(tables)), tables)
+    if not tables.is_cuda:
+        with timed:
+            return gate_scores_plain(tables, spectrum)
     out = torch.empty(b, dtype=_I32, device=tables.device)
-    err = _kernels.lib().sbgt_walsh_scores(
+    fn, args = _kernels.lib().sbgt_walsh_scores, (
         tables.data_ptr(), b, spectrum.data_ptr(), out.data_ptr(),
         _kernels.stream_ptr(tables.device),
     )
-    _kernels.check(err, "gate_scores_kernel")
+    with timed as events:
+        _kernels.check(fn(*args, *events), "gate_scores_kernel")
     launches += 1
     return out
 

@@ -13,7 +13,14 @@ the same sweeps in both packages.
 
 An abandoned attempt keeps its own worker thread and result cell: its late
 result never reaches the caller, and every re-issue builds its own device
-buffers.
+buffers.  Each attempt carries an :class:`Attempt` gate
+(:func:`current_attempt` on its worker thread), which the telemetry checks
+so that an abandoned attempt records no launch time once it is abandoned.
+
+Telemetry, at the JAX package's sites: a ``deadline.window`` span per
+guarded attempt, a ``deadline.breach`` instant per breach, and on
+exhaustion a ``deadline.exhausted`` instant and a ``deadline_exhausted``
+flight-recorder dump.
 """
 
 from __future__ import annotations
@@ -25,11 +32,14 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+from ..telemetry import flight as _tflight
+from ..telemetry import metrics as _tmetrics
+from ..telemetry import trace as _ttrace
 from .faults import fault_point
 
 logger = logging.getLogger(__name__)
 
-_bump_lock = threading.Lock()
+_tls = threading.local()
 
 
 class DispatchTimeout(RuntimeError):
@@ -37,11 +47,45 @@ class DispatchTimeout(RuntimeError):
 
 
 def _bump(stats, key: str, by: int = 1) -> None:
-    """Locked counter increment on ``stats`` (a dict, or None)."""
-    if stats is None:
-        return
-    with _bump_lock:
-        stats[key] = stats.get(key, 0) + by
+    """Atomic counter increment on ``stats`` (a registry, a dict, or
+    None)."""
+    _tmetrics.bump(stats, key, by)
+
+
+def _flight_exhausted(stats, label: str, windows: int) -> None:
+    """Retry exhaustion is a flight-recorder incident: the dump carries
+    the recent dispatch and deadline events and the window's label."""
+    _ttrace.instant("deadline.exhausted", "deadline",
+                    label=label, windows=windows)
+    path = _tflight.flight_dump(
+        "deadline_exhausted",
+        registry=stats if isinstance(stats, _tmetrics.MetricsRegistry)
+        else None,
+        extra={"label": label, "windows": windows},
+    )
+    if path is not None:
+        _bump(stats, "flight_dumps")
+
+
+class Attempt:
+    """The gate of one guarded attempt: ``abandoned`` is set, under
+    ``lock``, when the deadline gives up on it."""
+
+    __slots__ = ("lock", "abandoned")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.abandoned = False
+
+    def abandon(self) -> None:
+        with self.lock:
+            self.abandoned = True
+
+
+def current_attempt() -> Optional[Attempt]:
+    """The :class:`Attempt` whose worker is the calling thread, or None
+    outside a guarded attempt."""
+    return getattr(_tls, "attempt", None)
 
 
 @dataclass
@@ -76,8 +120,10 @@ def run_with_deadline(fn: Callable, budget_s: float, label: str = ""):
         return fn()
     box: dict = {}
     done = threading.Event()
+    attempt = Attempt()
 
     def work() -> None:
+        _tls.attempt = attempt
         try:
             box["value"] = fn()
         except BaseException as e:  # delivered to the caller below
@@ -88,6 +134,7 @@ def run_with_deadline(fn: Callable, budget_s: float, label: str = ""):
     worker = threading.Thread(target=work, name="sbg-deadline", daemon=True)
     worker.start()
     if not done.wait(budget_s):
+        attempt.abandon()
         raise DispatchTimeout(
             f"device dispatch{f' [{label}]' if label else ''} exceeded its "
             f"{budget_s:g}s deadline (hung kernel or device?)"
@@ -113,7 +160,8 @@ def dispatch_with_retry(
     ``stats['deadline_breaches']``; each retry adds one to
     ``stats['dispatch_retries']``, sleeps the doubling backoff, calls
     ``on_retry`` (re-issue the dispatch) and tries again.  After
-    ``cfg.retries`` retries the last :class:`DispatchTimeout` propagates.
+    ``cfg.retries`` retries the last :class:`DispatchTimeout` propagates,
+    after a ``deadline_exhausted`` flight-recorder dump.
     A disabled config (or None) calls inline: no thread.
     """
 
@@ -126,14 +174,23 @@ def dispatch_with_retry(
     delay = cfg.backoff_s
     for k in range(cfg.retries + 1):
         try:
-            return run_with_deadline(attempt, cfg.budget_s, label)
+            with _ttrace.span("deadline.window", "deadline",
+                              label=label, attempt=k) as sp:
+                try:
+                    return run_with_deadline(attempt, cfg.budget_s, label)
+                except DispatchTimeout:
+                    sp.set(breach=True)
+                    raise
         except DispatchTimeout as e:
             _bump(stats, "deadline_breaches")
+            _ttrace.instant("deadline.breach", "deadline", label=label,
+                            attempt=k)
             if k == cfg.retries:
                 logger.warning(
                     "%s; %d retr%s exhausted", e, cfg.retries,
                     "y" if cfg.retries == 1 else "ies",
                 )
+                _flight_exhausted(stats, label, cfg.retries + 1)
                 raise
             _bump(stats, "dispatch_retries")
             logger.warning("%s; retry %d/%d in %.2fs", e, k + 1, cfg.retries,

@@ -198,8 +198,12 @@ def fault_point(site: str) -> None:
     if spec.action == "raise":
         raise InjectedFault(f"injected fault at {site} (hit {hit})")
     if spec.action == "crash":
-        # The uncatchable death: no atexit, no finally.  (The JAX package
-        # writes a flight-recorder dump first; the port has no recorder.)
+        # The uncatchable death: no atexit, no finally.  The flight
+        # recorder dumps first (a preempted run gets the same grace from
+        # SIGTERM), and its incident hook writes a heartbeat line.
+        from ..telemetry import flight as _tflight
+
+        _tflight.flight_dump("injected_crash", extra={"site": site, "hit": hit})
         print(f"[sbg-fault] crash at {site} (hit {hit})", flush=True)
         os._exit(CRASH_EXIT_CODE)
     # hang: block forever in small sleeps (a daemon worker parked here is

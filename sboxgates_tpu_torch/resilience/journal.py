@@ -32,6 +32,8 @@ import logging
 import os
 from typing import Any, Dict, List, Optional
 
+from ..telemetry import metrics as _tmetrics
+from ..telemetry import trace as _ttrace
 from .checkpoint import clean_stale_tmp, durable_write_text
 from .faults import fault_point
 
@@ -161,10 +163,18 @@ class SearchJournal:
         if self.readonly:
             return rec
         line = json.dumps(rec, sort_keys=True)
-        with open(self._path, "a", encoding="utf-8") as f:
-            f.write(line + "\n")
-            f.flush()
-            os.fsync(f.fileno())
+        # One journal[<type>] span per append: the fsync is wall time on
+        # the driver's path, and the appends are what a flight dump
+        # correlates the dispatches against.
+        with _ttrace.span(f"journal[{rtype}]", "journal",
+                          seq=rec["seq"], dir=self.directory):
+            with open(self._path, "a", encoding="utf-8") as f:
+                f.write(line + "\n")
+                f.flush()
+                os.fsync(f.fileno())
+        # Process-global tally (the journal has no context): heartbeat
+        # lines and metrics.json carry it under "process".
+        _tmetrics.GLOBAL.inc("journal_appends")
         self.records.append(rec)
         self._unsnapshotted += 1
         if (

@@ -16,6 +16,7 @@ circuit in both.
 from __future__ import annotations
 
 import hashlib
+import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -28,6 +29,11 @@ from ..graph.state import GATES, State
 from ..ops import combinatorics as comb
 from ..ops import sweeps
 from ..resilience import deadline as _deadline
+from ..telemetry import attribution as _tattr
+from ..telemetry import flight as _tflight
+from ..telemetry import metrics as _tmetrics
+from ..telemetry import trace as _ttrace
+from ..utils.profile import PhaseProfiler
 
 # Gate-count buckets: live tables are zero-padded up to the next bucket.  The
 # pair sweep's index space is the bucket's pair grid, so the bucket shapes
@@ -114,6 +120,12 @@ class Options:
     # SBG_DISPATCH_TIMEOUT_S default, 0 = off): a breach retries with
     # backoff, then the driver degrades to the host chunk stream.
     dispatch_timeout_s: Optional[float] = None
+    # --trace: the process tracer records spans while this context lives
+    # (the CLI exports them at exit).  Observation only.
+    trace: bool = False
+    # --status-port: the CLI serves /status on this port (0: ephemeral).
+    # Observation only.
+    status_port: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -217,28 +229,6 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-class Stats(dict):
-    """Run counters (candidates examined per sweep kind, nodes, deadline
-    breaches, ...)."""
-
-    def inc(self, key: str, n: int = 1) -> None:
-        self[key] = self.get(key, 0) + int(n)
-
-    def put(self, key: str, value: int) -> None:
-        """Sets one counter (a degrading driver backs out the candidates of
-        its abandoned sweep)."""
-        self[key] = int(value)
-
-    def restore(self, snapshot: dict) -> None:
-        """Replaces every counter with ``snapshot``'s (a bailed engine call
-        drops what its serviced requests counted)."""
-        self.clear()
-        self.update(snapshot)
-
-    def __missing__(self, key):
-        return 0
-
-
 class SearchContext:
     """Derived state shared by every create_circuit call of one run."""
 
@@ -282,7 +272,25 @@ class SearchContext:
         self._binom_wide = None
         self._lut5_tabs = None
         self._lut7_tabs = None
-        self.stats = Stats()
+        # Run counters and histograms: the thread-safe registry
+        # (telemetry.metrics), read like a dict; the declared schema is
+        # telemetry.metrics.METRICS.
+        self.stats = _tmetrics.context_registry()
+        # Per-phase wall-clock timers (the -v -v report).
+        self.prof = PhaseProfiler()
+        if opt.trace:
+            _ttrace.tracer().enabled = True
+        # Attribution rows are drawn against the device's peaks; the
+        # kernels' launch times land in self.stats through this timer.  The
+        # cost store is process-wide: a new context (one per run) empties
+        # it, so a run's rows hold its own launches only.
+        _tattr.reset()
+        _tattr.note_backend(self.device.type)
+        self.launch_timer = _tattr.LaunchTimer(self.stats)
+        # Gate count of the latest node sweep (device or host): the C(g, k)
+        # denominator of /status coverage.  A plain attribute, not a
+        # registry gauge (merge sums scalars).
+        self.last_dispatch_gates: Optional[int] = None
         # Deadline policy of the guarded sweeps (guarded_dispatch).
         self.deadline_cfg = _deadline.config_from_env()
         if opt.dispatch_timeout_s is not None:
@@ -343,9 +351,66 @@ class SearchContext:
 
     def trip_device_breaker(self) -> None:
         """Flips the device circuit breaker for the rest of the run: later
-        LUT sweeps go straight to the host chunk stream."""
+        LUT sweeps go straight to the host chunk stream.  The trip is a
+        flight-recorder incident: the dump holds the recent dispatch and
+        deadline events and the counters."""
         self.device_degraded = True
         self.stats.inc("circuit_breaker_trips")
+        _ttrace.instant("circuit_breaker.trip", "deadline", demoted_mesh=False)
+        path = _tflight.flight_dump(
+            "circuit_breaker", registry=self.stats,
+            extra={"demoted_mesh": False},
+        )
+        if path is not None:
+            self.stats.inc("flight_dumps")
+
+    def dispatch(self, name: str, fn, g: Optional[int] = None):
+        """One device sweep call of the search layer, ``fn()``, at the
+        sites where the JAX package calls ``kernel_call``: the only place
+        ``device_dispatches`` is counted, and one ``dispatch[<name>]`` span
+        (kernel, gate count, and the kernel launches of the call with
+        their summed analytic cost).  The launches of K1-K5 inside it are
+        timed into this context's registry, gated by the deadline's
+        attempt when it runs on one, and those that have completed by the
+        time ``fn`` returns (after its own verdict sync) are read then."""
+        self.stats.inc("device_dispatches")
+        if g is not None:
+            self.last_dispatch_gates = g
+        with _ttrace.span(f"dispatch[{name}]", "dispatch", kernel=name,
+                          g=g) as sp:
+            with _tattr.recording(self.launch_timer,
+                                  _deadline.current_attempt()) as launched:
+                out = fn()
+            if launched:
+                sp.set(launches=len(launched), **self._launch_cost(launched))
+        self.launch_timer.settle()
+        return out
+
+    @staticmethod
+    def _launch_cost(launched) -> dict:
+        total: dict = {}
+        for kernel, bucket in launched:
+            for k, v in (_tattr.annotation(kernel, bucket) or {}).items():
+                total[k] = total.get(k, 0.0) + v
+        return total
+
+    def close_telemetry(self) -> int:
+        """Reads the launch times never synced by the search (a window
+        swept past a hit), once the stream has finished them: polls, never
+        waits.  Returns how many were dropped unread."""
+        return self.launch_timer.drain()
+
+    def status_state(self) -> dict:
+        """Engine-state section of ``/status`` (read-only, lock-free)."""
+        return {
+            "device_degraded": self.device_degraded,
+            "deadline_enabled": bool(self.deadline_cfg.enabled),
+            "lut_graph": self.opt.lut_graph,
+            "candidate_order": self.opt.candidate_order,
+            "native": self.opt.native,
+            "device": str(self.device),
+            "last_dispatch_gates": self.last_dispatch_gates,
+        }
 
     @property
     def pipeline_depth(self) -> int:
@@ -353,11 +418,18 @@ class SearchContext:
         (``Options.pipeline_depth``, at least 1)."""
         return max(1, int(self.opt.pipeline_depth))
 
-    def host_prefetcher(self, stream, chunk_size: int, exclude):
+    def host_prefetcher(self, stream, chunk_size: int, exclude, phase: str):
         """A :class:`ops.combinatorics.ChunkPrefetcher` of this context's
-        depth."""
+        depth, its produce and stall spans recorded against ``phase`` in
+        the profiler's overlap accounting, keyed on the calling (consumer)
+        thread."""
+        ckey = threading.get_ident()
         return comb.ChunkPrefetcher(
-            stream, chunk_size, exclude, depth=self.pipeline_depth
+            stream, chunk_size, exclude, depth=self.pipeline_depth,
+            on_produce=lambda t0, t1: self.prof.add_produce(
+                phase, t0, t1, consumer=ckey),
+            on_stall=lambda t0, t1: self.prof.add_stall(
+                phase, t0, t1, consumer=ckey),
         )
 
     def next_seed(self) -> int:
@@ -481,9 +553,9 @@ class SearchContext:
         if stop is not None:
             total = min(int(stop), total)
         verdict, feas, r1, r0 = self.guarded_dispatch(
-            lambda: sweeps.feasible_stream(
+            lambda: self.dispatch("feasible_stream", lambda: sweeps.feasible_stream(
                 *base_args, start, total, k=k, chunk=chunk
-            ),
+            ), g=st.num_gates),
             f"feasible_stream k={k}",
         )
         found, cstart, examined = (int(x) for x in verdict)
@@ -585,6 +657,7 @@ class SearchContext:
         """Host-native gate-mode node head (csrc sbg_gate_step): the
         device verdict without the device."""
         g = st.num_gates
+        self.last_dispatch_gates = g
         has_not = bool(self.not_entries) and not self.opt.lut_graph
         has_triple = not self.opt.lut_graph and g >= 3
         total3 = comb.n_choose_k(g, 3) if has_triple else 0
@@ -595,11 +668,12 @@ class SearchContext:
             self._gate_step_caller = native.GateStepCaller(
                 self.pair_table_np, self.not_table_np, self.triple_table_np
             )
-        v = self._gate_step_caller(
-            np.ascontiguousarray(st.live_tables()), g, bucket_size(g),
-            np.asarray(target), np.asarray(mask), has_not, has_triple,
-            total3, chunk3, self.next_seed(),
-        )
+        with self.prof.phase("gate_step_native"):
+            v = self._gate_step_caller(
+                np.ascontiguousarray(st.live_tables()), g, bucket_size(g),
+                np.asarray(target), np.asarray(mask), has_not, has_triple,
+                total3, chunk3, self.next_seed(),
+            )
         return self._count_gate_step(g, has_triple, v)
 
     def gate_step(self, st: State, target, mask):
@@ -614,14 +688,17 @@ class SearchContext:
         has_triple = not self.opt.lut_graph and g >= 3
         total3 = comb.n_choose_k(g, 3) if has_triple else 0
         chunk3 = pick_chunk(max(total3, 1), STREAM_CHUNK[3])
-        v = sweeps.gate_step_stream(
+        args = (
             tables, valid_g, combos, pair_valid, self.binom, g,
             self.words(target), self.words(mask),
             torch.from_numpy(self.excl_array([])).to(self.device), total3,
             self.pair_table, self.not_table if has_not else self.pair_table,
             self.triple_table, self.next_seed(),
-            chunk3=chunk3, has_not=has_not, has_triple=has_triple,
         )
+        with self.prof.phase("gate_step"):
+            v = self.dispatch("gate_step_stream", lambda: sweeps.gate_step_stream(
+                *args, chunk3=chunk3, has_not=has_not, has_triple=has_triple,
+            ), g=g)
         return self._count_gate_step(g, has_triple, v)
 
     def _lut_head_sizes(self, g: int):
@@ -647,14 +724,16 @@ class SearchContext:
         from .. import native
 
         g = st.num_gates
+        self.last_dispatch_gates = g
         total3, total5, has5, chunk3, chunk5 = self._lut_head_sizes(g)
         _, w_tab, m_tab = sweeps.lut5_split_tables()
-        v = native.lut_step(
-            np.ascontiguousarray(st.live_tables()), g, bucket_size(g),
-            np.asarray(target), np.asarray(mask), self.pair_table_np,
-            self.excl_array(inbits), total3, chunk3, has5, total5, chunk5,
-            LUT5_HEAD_SOLVE_ROWS, w_tab, m_tab, self.next_seed(),
-        )
+        with self.prof.phase("lut_step_native"):
+            v = native.lut_step(
+                np.ascontiguousarray(st.live_tables()), g, bucket_size(g),
+                np.asarray(target), np.asarray(mask), self.pair_table_np,
+                self.excl_array(inbits), total3, chunk3, has5, total5, chunk5,
+                LUT5_HEAD_SOLVE_ROWS, w_tab, m_tab, self.next_seed(),
+            )
         return self._count_lut_step(g, v)
 
     def lut_step(self, st: State, target, mask, inbits) -> np.ndarray:
@@ -667,14 +746,17 @@ class SearchContext:
         tables, g, valid_g, combos, pair_valid = self._node_operands(st)
         total3, total5, has5, chunk3, chunk5 = self._lut_head_sizes(g)
         jw, jm = self.lut5_tabs()
-        v = sweeps.lut_step_stream(
+        args = (
             tables, valid_g, combos, pair_valid, self.binom, g,
             self.words(target), self.words(mask),
             torch.from_numpy(self.excl_array(inbits)).to(self.device),
             total3, total5, self.pair_table, jw, jm, self.next_seed(),
-            chunk3=chunk3, chunk5=chunk5, has5=has5,
-            solve_rows=LUT5_HEAD_SOLVE_ROWS,
         )
+        with self.prof.phase("lut_step"):
+            v = self.dispatch("lut_step_stream", lambda: sweeps.lut_step_stream(
+                *args, chunk3=chunk3, chunk5=chunk5, has5=has5,
+                solve_rows=LUT5_HEAD_SOLVE_ROWS,
+            ), g=g)
         return self._count_lut_step(g, v)
 
     def _lut7_step_native(self, st: State, target, mask, inbits) -> np.ndarray:
@@ -686,15 +768,17 @@ class SearchContext:
         from .. import native
 
         g = st.num_gates
+        self.last_dispatch_gates = g
         total7 = comb.n_choose_k(g, 7)
         chunk7 = pick_chunk(max(total7, 1), STREAM_CHUNK[7])
         solve7 = LUT7_HEAD_SOLVE_ROWS
         seed = self.next_seed()
-        nfeas, ranks, r1, r0 = native.lut7_stage_a(
-            np.ascontiguousarray(st.live_tables()), g, np.asarray(target),
-            np.asarray(mask), self.excl_array(inbits), total7, chunk7, solve7,
-            seed,
-        )
+        with self.prof.phase("lut7_stage_a_native"):
+            nfeas, ranks, r1, r0 = native.lut7_stage_a(
+                np.ascontiguousarray(st.live_tables()), g, np.asarray(target),
+                np.asarray(mask), self.excl_array(inbits), total7, chunk7,
+                solve7, seed,
+            )
         v = np.zeros(14, dtype=np.int32)
         v[4] = min(total7, chunk7)
         if nfeas:
@@ -704,7 +788,10 @@ class SearchContext:
             sr1[:take] = r1
             sr0[:take] = r0
             idx_tab, _ = sweeps.lut7_pair_tables()
-            sol = native.lut7_solve_small(r1, r0, solve7, idx_tab, seed ^ 0x77A1)
+            with self.prof.phase("lut7_solve_native"):
+                sol = native.lut7_solve_small(
+                    r1, r0, solve7, idx_tab, seed ^ 0x77A1
+                )
             found, best_t, sigma, flat = (int(x) for x in sol)
             overflow = nfeas > solve7 and not found
             v[0] = 1 if found else (2 if overflow else 0)
@@ -729,13 +816,16 @@ class SearchContext:
         total7 = comb.n_choose_k(g, 7)
         chunk7 = pick_chunk(max(total7, 1), STREAM_CHUNK[7])
         jidx, jpp = self.lut7_tabs()
-        v = sweeps.lut7_step_stream(
+        args = (
             self.device_tables(st), self.binom, g, self.words(target),
             self.words(mask),
             torch.from_numpy(self.excl_array(inbits)).to(self.device),
             total7, jidx, jpp, self.next_seed(),
-            chunk7=chunk7, solve7=LUT7_HEAD_SOLVE_ROWS,
         )
+        with self.prof.phase("lut7_step"):
+            v = self.dispatch("lut7_step_stream", lambda: sweeps.lut7_step_stream(
+                *args, chunk7=chunk7, solve7=LUT7_HEAD_SOLVE_ROWS,
+            ), g=g)
         self.stats.inc("lut7_candidates", int(v[4]))
         self.stats.inc("lut7_solved", int(v[5]))
         return v

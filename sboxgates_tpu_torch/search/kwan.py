@@ -45,6 +45,15 @@ def create_circuit(
     Kwan's paper, as in the reference implementation."""
     # Fault site: one hit per search node entered.
     fault_point("search.node")
+    # Re-entrant phase: its self time is the host control flow, without
+    # the nested sweeps' phases.
+    with ctx.prof.phase("kwan_host"):
+        return _create_circuit(ctx, st, target, mask, inbits)
+
+
+def _create_circuit(
+    ctx: SearchContext, st: State, target, mask, inbits: List[int]
+) -> int:
     opt = ctx.opt
     metric = opt.metric
 
@@ -200,11 +209,13 @@ def _lut_engine_service(ctx: SearchContext):
         fault_point("native.devcb")
         st = _EngineView(tables, g)
         if kind == 1:  # pivot-sized space: the full 5-LUT search
-            res = lutmod.lut5_search(ctx, st, target, mask, inbits)
+            with ctx.prof.phase("lut5"):
+                res = lutmod.lut5_search(ctx, st, target, mask, inbits)
         elif kind == 2:  # head-solver overflow: resume from chunk arg0
             res = lutmod.lut5_resume_overflow(ctx, st, target, mask, inbits, arg0)
         elif kind == 3:  # staged 7-LUT
-            res = lutmod.lut7_search(ctx, st, target, mask, inbits)
+            with ctx.prof.phase("lut7"):
+                res = lutmod.lut7_search(ctx, st, target, mask, inbits)
             if res is None:
                 return None
             return (
@@ -255,10 +266,11 @@ def _native_engine_search(
     ctx: SearchContext, st: State, target, mask, inbits: List[int]
 ) -> int:
     """The gate-mode recursion in the native engine."""
-    out_gid, added, stats = ctx.gate_engine_caller()(
-        *_engine_args(ctx, st, target, mask, inbits),
-        use_not=bool(ctx.not_entries),
-    )
+    with ctx.prof.phase("gate_engine_native"):
+        out_gid, added, stats = ctx.gate_engine_caller()(
+            *_engine_args(ctx, st, target, mask, inbits),
+            use_not=bool(ctx.not_entries),
+        )
     return _engine_replay(ctx, st, target, mask, out_gid, added, stats)
 
 
@@ -276,9 +288,11 @@ def _native_lut_engine_search(
     if ctx.lut_engine_devcb is None:
         ctx.lut_engine_devcb = native.make_eng_devcb(_lut_engine_service(ctx))
     stats_snapshot = dict(ctx.stats)
-    out_gid, added, stats = ctx.lut_engine_caller()(
-        *_engine_args(ctx, st, target, mask, inbits), devcb=ctx.lut_engine_devcb,
-    )
+    with ctx.prof.phase("lut_engine_native"):
+        out_gid, added, stats = ctx.lut_engine_caller()(
+            *_engine_args(ctx, st, target, mask, inbits),
+            devcb=ctx.lut_engine_devcb,
+        )
     if added is None:  # bailed: the device-work service failed
         ctx.stats.restore(stats_snapshot)
         return None

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
+import time
 from collections import deque
 from contextlib import closing
 from typing import List, Optional, Tuple
@@ -98,7 +100,8 @@ def lut3_search(ctx: SearchContext, st: State, target, mask, inbits) -> int:
     args, total, chunk = ctx.stream_args(st, target, mask, [], 3)
     seed = ctx.next_seed()
     v = ctx.guarded_dispatch(
-        lambda: sweeps.lut3_stream(*args, 0, total, seed, chunk=chunk),
+        lambda: ctx.dispatch("lut3_stream", lambda: sweeps.lut3_stream(
+            *args, 0, total, seed, chunk=chunk), g=g),
         "lut3.stream",
     )
     ctx.stats.inc("lut3_candidates", int(v[4]))
@@ -155,9 +158,9 @@ def _solve_lut5_rows(
         ctx.stats.inc("lut5_solved", hi - lo)
         seed = ctx.next_seed()
         v = ctx.host_sync_deadline(
-            lambda a=p1, b=p0: sweeps.lut5_solve(
+            lambda a=p1, b=p0: ctx.dispatch("lut5_solve", lambda: sweeps.lut5_solve(
                 ctx.words(a), ctx.words(b), jw, jm, seed
-            ),
+            ), g=st.num_gates),
             "lut5.solve",
         )
         if not v[0]:
@@ -196,10 +199,12 @@ class PivotOperands:
     descriptors (host), validity masks and per-pair cell masks (device).
     The pair arrays are padded by one tile so every tile slice is in
     range; padded rows are invalid.  For the ``"pre"`` backend the cell
-    masks are also expanded to int8 lanes (``lanes``), once."""
+    masks are also expanded to int8 lanes (``lanes``), once.  ``dispatch``
+    (a context's :meth:`SearchContext.dispatch`) wraps the pair-cell
+    sweep; None calls it directly."""
 
     def __init__(self, g, tl, th, excl, tables, target, mask, device,
-                 backend="packed"):
+                 backend="packed", dispatch=None):
         self.g, self.tl, self.th = g, tl, th
         lows, highs, _ = sweeps.pivot_pair_grids(g)
         descs = sweeps.pivot_tile_descs(g, tl, th, excl)
@@ -224,10 +229,16 @@ class PivotOperands:
         highs_p[:p2] = highs
         self.tables = tables
         put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-        self.lc1, self.lc0, self.hc = sweeps.pivot_pair_cells(
+        cells = (
             tables, put(lows_p), put(highs_p),
             sweeps.as_words(target, device), sweeps.as_words(mask, device),
         )
+        if dispatch is None:
+            self.lc1, self.lc0, self.hc = sweeps.pivot_pair_cells(*cells)
+        else:
+            self.lc1, self.lc0, self.hc = dispatch(
+                "pivot_pair_cells", lambda: sweeps.pivot_pair_cells(*cells), g=g
+            )
         self.jlv = put(lowvalid)
         self.jhv = put(highvalid)
         self.lanes = None
@@ -255,7 +266,7 @@ def _lut5_search_pivot(
     backend = ctx.opt.pivot_backend
     ops = PivotOperands(
         g, tl, th, excl, ctx.device_tables(st), target, mask, ctx.device,
-        backend=backend,
+        backend=backend, dispatch=ctx.dispatch,
     )
     t_real = ops.t_real
     if t_real == 0:
@@ -275,10 +286,11 @@ def _lut5_search_pivot(
     def redrive_tile(t_over: int) -> Optional[dict]:
         """Overflow fallback: one tile's full feasibility data, every
         feasible tuple solved (no in-kernel row cap)."""
-        feas, r1, r0 = sweeps.lut5_pivot_tile(
+        feas, r1, r0 = ctx.dispatch("lut5_pivot_tile", lambda: sweeps.lut5_pivot_tile(
             *args, t_over, tl=tl, th=th, backend=backend
-        )
+        ), g=g)
         rows = np.nonzero(feas.cpu().numpy())[0]
+        ctx.launch_timer.settle()
         if not rows.size:
             return None
         if ctx.opt.randomize:
@@ -299,7 +311,7 @@ def _lut5_search_pivot(
     segments = None
     if ctx.opt.candidate_order == "spectral" and t_real > 1:
         segments = _order_tile_segments(
-            ctx, args[0], target, mask, descs, t_real, "lut5.pivot"
+            ctx, args[0], target, mask, descs, t_real, "lut5.pivot", g
         )
     ordered = segments is not None
     if not ordered:
@@ -311,9 +323,11 @@ def _lut5_search_pivot(
             # many windows it launches: the JAX package's one resolve.
             seed = ctx.next_seed()
             v = ctx.guarded_dispatch(
-                lambda s=start_t, hi=seg_hi: sweeps.lut5_pivot_stream(
-                    *args, s, hi, jw, jm, seed, tl=tl, th=th, backend=backend,
-                ),
+                lambda s=start_t, hi=seg_hi: ctx.dispatch(
+                    "lut5_pivot_stream", lambda: sweeps.lut5_pivot_stream(
+                        *args, s, hi, jw, jm, seed, tl=tl, th=th,
+                        backend=backend,
+                    ), g=g),
                 "lut5.pivot",
             )
             if ordered:
@@ -398,9 +412,10 @@ def _lut5_stream_loop(ctx, st, target, mask, inbits, start) -> Optional[dict]:
         while start < seg_hi:
             seed = ctx.next_seed()
             v = ctx.guarded_dispatch(
-                lambda s=start, hi=seg_hi: sweeps.lut5_stream(
-                    *args, s, hi, jw, jm, seed, chunk=chunk
-                ),
+                lambda s=start, hi=seg_hi: ctx.dispatch(
+                    "lut5_stream", lambda: sweeps.lut5_stream(
+                        *args, s, hi, jw, jm, seed, chunk=chunk
+                    ), g=g),
                 "lut5.stream",
             )
             if ordered:
@@ -471,10 +486,13 @@ def lut5_resume_overflow(
     if ctx.device_degraded:
         return _lut5_search_host(ctx, st, target, mask, inbits)
     try:
-        res = _lut5_chunk_two_phase(ctx, st, target, mask, inbits, cstart)
-        if res is None:
-            chunk = pick_chunk(comb.n_choose_k(st.num_gates, 5), STREAM_CHUNK[5])
-            res = _lut5_stream_loop(ctx, st, target, mask, inbits, cstart + chunk)
+        with ctx.prof.phase("lut5"):
+            res = _lut5_chunk_two_phase(ctx, st, target, mask, inbits, cstart)
+            if res is None:
+                chunk = pick_chunk(comb.n_choose_k(st.num_gates, 5),
+                                   STREAM_CHUNK[5])
+                res = _lut5_stream_loop(ctx, st, target, mask, inbits,
+                                        cstart + chunk)
     except DispatchTimeout as e:
         logger.warning(
             "%s; degrading the overflow-resume 5-LUT sweep to the "
@@ -527,10 +545,11 @@ def _wide_feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits, k
     start = 0
     while start < total:
         v, feas, r1, r0 = ctx.guarded_dispatch(
-            lambda s=start: sweeps.feasible_stream_wide(
-                tables, ctx.binom_wide, g, jt, jm, jexcl, s, total, k=k,
-                chunk=chunk,
-            ),
+            lambda s=start: ctx.dispatch(
+                "feasible_stream_wide", lambda: sweeps.feasible_stream_wide(
+                    tables, ctx.binom_wide, g, jt, jm, jexcl, s, total, k=k,
+                    chunk=chunk,
+                ), g=g),
             f"{phase}.wide",
         )
         found = bool(v[0])
@@ -571,7 +590,9 @@ def _host_feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits,
     depth = ctx.pipeline_depth
     rows = torch.arange(csize, device=ctx.device)
     pin = ctx.device.type == "cuda"
-    with ctx.host_prefetcher(stream, csize, excl) as pf:
+    ckey = threading.get_ident()
+    name = "lut5_filter" if k == 5 else "lut_filter"
+    with ctx.host_prefetcher(stream, csize, excl, phase) as pf:
         inflight: deque = deque()
         exhausted = False
         while True:
@@ -585,15 +606,22 @@ def _host_feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits,
                 if pin:
                     host = host.pin_memory()
                 combos = host.to(ctx.device, non_blocking=True)
-                feas, req1, req0 = sweeps.lut_filter(
-                    tables, combos, rows < nvalid, jt, jm
-                )
+                feas, req1, req0 = ctx.dispatch(name, lambda c=combos, n=nvalid: (
+                    sweeps.lut_filter(tables, c, rows < n, jt, jm)), g=g)
                 inflight.append((padded, nvalid, feas.any(), feas, req1, req0))
             if not inflight:
                 return
             padded, nvalid, hit, feas, req1, req0 = inflight.popleft()
             ctx.stats.inc(stat_key, nvalid)
-            if not ctx.host_sync_deadline(lambda h=hit: bool(h), phase):
+            t0 = time.perf_counter()
+            found = ctx.host_sync_deadline(lambda h=hit: bool(h), phase)
+            t1 = time.perf_counter()
+            # After the verdict's sync: the chunk's filter launch is done.
+            ctx.prof.add_wait(phase, t0, t1, consumer=ckey)
+            ctx.stats.observe("device_wait_s", t1 - t0)
+            ctx.stats.observe(f"device_wait_s[{phase}]", t1 - t0)
+            ctx.launch_timer.settle()
+            if not found:
                 continue
             yield (lambda r, p=padded: p[r]), feas.cpu().numpy(), req1, req0
 
@@ -672,34 +700,42 @@ def _order_segments(ctx, k, prebuilt, phase):
     while n_pad < n_chunks:
         n_pad *= 2
 
+    t0 = time.perf_counter()
+
     def attempt():
         fault_point("order.score")
-        return sweeps.spectral_score_stream(
+        return ctx.dispatch("spectral_score_stream", lambda: sweeps.spectral_score_stream(
             *args, total, k=k, chunk=chunk, n_chunks=n_pad
-        ).cpu().numpy()
+        ).cpu().numpy(), g=args[2])
 
     scores = ctx.guarded_dispatch(attempt, f"{phase}.order")
-    return [
+    segs = [
         (lo * chunk, min(hi * chunk, total), tier)
         for lo, hi, tier in comb.tier_segments(scores, n_chunks, ORDER_TIERS)
     ]
+    ctx.stats.observe("order_score_s", time.perf_counter() - t0)
+    return segs
 
 
-def _order_tile_segments(ctx, dev_tables, target, mask, descs, t_real, phase):
+def _order_tile_segments(ctx, dev_tables, target, mask, descs, t_real, phase, g):
     """Pivot-path best-first ordering: every tile keys on its pivot gate
     ``descs[:, 0]``, so one guarded gate-score pass (kernel K5 on the card,
     the ``order.score`` fault site) tiers the tiles.  Returns
     ``[(lo_tile, hi_tile, tier), ...]`` partitioning [0, t_real)."""
 
+    t0 = time.perf_counter()
+
     def attempt():
         fault_point("order.score")
-        return sweeps.spectral_gate_scores(
+        return ctx.dispatch("spectral_gate_scores", lambda: sweeps.spectral_gate_scores(
             dev_tables, ctx.words(target), ctx.words(mask)
-        ).cpu().numpy()
+        ).cpu().numpy(), g=g)
 
     gscores = ctx.guarded_dispatch(attempt, f"{phase}.order")
     tile_scores = gscores[descs[:t_real, 0]]
-    return comb.tier_segments(tile_scores, t_real, ORDER_TIERS)
+    segs = comb.tier_segments(tile_scores, t_real, ORDER_TIERS)
+    ctx.stats.observe("order_score_s", time.perf_counter() - t0)
+    return segs
 
 
 # -------------------------------------------------------------------------
@@ -832,10 +868,12 @@ def lut7_search(ctx: SearchContext, st: State, target, mask, inbits) -> Optional
     (ordering x outer x middle) function space over them."""
     if st.num_gates < 7:
         return None
-    combos, req1, req0 = _lut7_collect_hits(ctx, st, target, mask, inbits)
+    with ctx.prof.phase("lut7.stageA"):
+        combos, req1, req0 = _lut7_collect_hits(ctx, st, target, mask, inbits)
     if len(combos) == 0:
         return None
-    return _lut7_solve_hits(ctx, combos, req1, req0)
+    with ctx.prof.phase("lut7.stageB"):
+        return _lut7_solve_hits(ctx, combos, req1, req0)
 
 
 def _lut7_solve_hits(ctx: SearchContext, combos, req1, req0) -> Optional[dict]:
@@ -850,9 +888,9 @@ def _lut7_solve_hits(ctx: SearchContext, combos, req1, req0) -> Optional[dict]:
         ctx.stats.inc("lut7_solved", hi - lo)
         seed = ctx.next_seed()
         v = ctx.host_sync_deadline(
-            lambda a=r1, b=r0: sweeps.lut7_solve(
+            lambda a=r1, b=r0: ctx.dispatch("lut7_solve", lambda: sweeps.lut7_solve(
                 ctx.words(a), ctx.words(b), jidx, jpp, seed
-            ),
+            )),
             "lut7.solve",
         )
         if not v[0]:
@@ -938,7 +976,8 @@ def _lut7_phase(ctx: SearchContext, st: State, target, mask, inbits) -> int:
     lut.c:582-625)."""
     if not check_num_gates_possible(st, 3, 0, ctx.opt.metric):
         return NO_GATE
-    res = lut7_search(ctx, st, target, mask, inbits)
+    with ctx.prof.phase("lut7"):
+        res = lut7_search(ctx, st, target, mask, inbits)
     if res is None:
         return NO_GATE
     return _add_lut7_result(ctx, st, res, target, mask)
@@ -948,12 +987,14 @@ def lut_search(ctx: SearchContext, st: State, target, mask, inbits) -> int:
     """Full LUT search: 3-LUT, then 5-LUT (2 new gates), then 7-LUT (3 new
     gates), with budget gating between phases (reference: lut_search,
     lut.c:489-631)."""
-    gid = lut3_search(ctx, st, target, mask, inbits)
+    with ctx.prof.phase("lut3"):
+        gid = lut3_search(ctx, st, target, mask, inbits)
     if gid != NO_GATE:
         return gid
     if not check_num_gates_possible(st, 2, 0, ctx.opt.metric):
         return NO_GATE
-    res = lut5_search(ctx, st, target, mask, inbits)
+    with ctx.prof.phase("lut5"):
+        res = lut5_search(ctx, st, target, mask, inbits)
     if res is not None:
         return _add_lut5_result(ctx, st, res, target, mask)
     return _lut7_phase(ctx, st, target, mask, inbits)
@@ -989,7 +1030,8 @@ def lut_search_from_head(
         res = lut5_resume_overflow(ctx, st, target, mask, inbits, int(head[1]))
     elif not lut_head_has5(g):
         # The head skipped 5-LUT (pivot-sized space or g < 5).
-        res = lut5_search(ctx, st, target, mask, inbits)
+        with ctx.prof.phase("lut5"):
+            res = lut5_search(ctx, st, target, mask, inbits)
 
     if res is not None:
         return _add_lut5_result(ctx, st, res, target, mask)

@@ -102,9 +102,8 @@ def _run(argv, tmp_path, capsys, key=None):
     rc = cli.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path)])
     out = capsys.readouterr()
     assert rc == 0, out.err
-    stray = [n for n in os.listdir(tmp_path)
-             if not n.endswith(".xml") and n not in JOURNAL]
-    assert not stray, stray
+    rest = sorted(n for n in os.listdir(tmp_path) if not n.endswith(".xml"))
+    assert rest == sorted(JOURNAL + ("metrics.json", "telemetry.jsonl")), rest
     got = _xml_files(str(tmp_path))
     if key is not None:
         _PORT_RUNS[key] = (got, _journal_files(str(tmp_path)))

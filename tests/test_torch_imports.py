@@ -50,6 +50,16 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.resilience.journal",
         "sboxgates_tpu_torch.resilience.deadline",
         "sboxgates_tpu_torch.resilience.checkpoint",
+        "sboxgates_tpu_torch.telemetry",
+        "sboxgates_tpu_torch.telemetry.metrics",
+        "sboxgates_tpu_torch.telemetry.trace",
+        "sboxgates_tpu_torch.telemetry.flight",
+        "sboxgates_tpu_torch.telemetry.heartbeat",
+        "sboxgates_tpu_torch.telemetry.attribution",
+        "sboxgates_tpu_torch.telemetry.status",
+        "sboxgates_tpu_torch.telemetry.watch",
+        "sboxgates_tpu_torch.utils.profile",
+        "sboxgates_tpu_torch.utils.guards",
     ):
         assert name in mods
 
@@ -100,8 +110,8 @@ def test_native_runtime_and_a_gate_search_load_neither_jax_nor_reference(tmp_pat
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert sorted(os.listdir(tmp_path)) == [
-        "1-006-0057-0-13a4fed5.xml", "search.journal.json",
-        "search.journal.jsonl"]
+        "1-006-0057-0-13a4fed5.xml", "metrics.json", "search.journal.json",
+        "search.journal.jsonl", "telemetry.jsonl"]
 
 
 @pytest.mark.parametrize("rel", SOURCES)

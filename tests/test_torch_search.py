@@ -101,6 +101,8 @@ def _xml_files(d):
 
 
 JOURNAL = ("search.journal.jsonl", "search.journal.json")
+# What an explicit --output-dir also holds: the heartbeat and the snapshot.
+TELEMETRY = ("metrics.json", "telemetry.jsonl")
 
 
 def _journal_files(d):
@@ -110,9 +112,10 @@ def _journal_files(d):
 
 def _port_journal(d):
     """:func:`_journal_files` of a directory only the port wrote, which must
-    hold nothing but the XML files and the journal."""
-    stray = [n for n in os.listdir(d) if not n.endswith(".xml") and n not in JOURNAL]
-    assert not stray, stray
+    hold the XML files, the journal and the telemetry files, as the JAX
+    CLI's run directory does, and nothing else."""
+    rest = sorted(n for n in os.listdir(d) if not n.endswith(".xml"))
+    assert rest == sorted(JOURNAL + TELEMETRY), rest
     return _journal_files(d)
 
 
@@ -160,6 +163,67 @@ def test_cli_writes_the_jax_packages_files(name, jax_runs, tmp_path, native_off)
     for n in want:
         assert got[n] == want[n], n
     assert _port_journal(str(tmp_path)) == _journal_files(os.path.join(out, name))
+
+
+# The JAX CLI's persistent XLA compile cache of an explicit --output-dir:
+# the port compiles no XLA and has none.
+JAX_ONLY = ("xla_cache",)
+# The counters both packages count the same (the reference's own totals);
+# dispatch counts differ by design (the port sweeps many tiles per call).
+REFERENCE_VISIBLE = ("_candidates", "_solved", "engine_nodes", "python_nodes")
+TRACE_FLAGS = ["--trace", "--status-port", "0", "--metrics-interval", "0.05"]
+
+
+def test_telemetry_flags_keep_the_files_and_write_the_jax_clis_telemetry(
+        jax_runs, tmp_path, capsys, native_off):
+    """With every telemetry feature on, the XML and the journal are the JAX
+    CLI's; the directory holds the JAX CLI's names plus ``trace.json``; the
+    heartbeat lines and metrics.json have the JAX CLI's top-level keys and
+    reference-visible counters; the trace's dispatch spans are as many as
+    ``device_dispatches``."""
+    out, rcs, _ = jax_runs
+    name = "fa_o0"
+    assert rcs[name] == 0
+    jdir = os.path.join(out, name)
+    rc = cli.main(CASES[name] + ["--device", "cpu", *TRACE_FLAGS, "-v", "-v",
+                                 "--output-dir", str(tmp_path)])
+    assert rc == 0
+    assert "phase " in capsys.readouterr().out  # the -v -v report
+    d = str(tmp_path)
+    assert _xml_files(d) == _xml_files(jdir)
+    assert _journal_files(d) == _journal_files(jdir)
+    jnames = [n for n in os.listdir(jdir) if n not in JAX_ONLY]
+    assert sorted(os.listdir(d)) == sorted(jnames + ["trace.json"])
+
+    def lines(p):
+        return [json.loads(ln) for ln in open(os.path.join(p, "telemetry.jsonl"))]
+
+    got, want = lines(d), lines(jdir)
+    for i in (0, -1):
+        assert sorted(got[i]) == sorted(want[i]), i
+    assert got[0]["kind"] == "start" and got[-1]["kind"] == "final"
+    assert got[0]["config"]["status_port"] > 0
+    gm = json.load(open(os.path.join(d, "metrics.json")))
+    jm = json.load(open(os.path.join(jdir, "metrics.json")))
+    assert sorted(gm) == sorted(jm)
+    keys = {k for k in set(gm["counters"]) | set(jm["counters"])
+            if k.endswith(REFERENCE_VISIBLE)}
+    assert keys and {k: gm["counters"].get(k, 0) for k in keys} == {
+        k: jm["counters"].get(k, 0) for k in keys}
+    trace = json.load(open(os.path.join(d, "trace.json")))["traceEvents"]
+    spans = [e for e in trace if e.get("cat") == "dispatch"]
+    assert len(spans) == gm["counters"]["device_dispatches"] > 0
+    assert gm["attribution"]["backend"] == "cpu"
+
+
+def test_watch_renders_a_jax_cli_run(jax_runs, capsys):
+    """The port's watcher reads the heartbeat the JAX CLI wrote."""
+    from sboxgates_tpu_torch.telemetry import watch
+
+    out, _, _ = jax_runs
+    assert watch.main([os.path.join(out, "des_o0"), "--once"]) == 0
+    text = capsys.readouterr().out
+    assert "terminal record" in text and "lut5_candidates" in text
 
 
 def test_crypto1_golden_is_the_jax_clis_file(jax_runs):
@@ -226,7 +290,7 @@ def test_pivot_backend_flag_writes_the_jax_clis_file(backend, jax_runs, tmp_path
         "--output-dir", str(tmp_path)])
     assert rc == 0
     stats = dict(kv.split("=") for kv in capsys.readouterr().out.split(
-        "stats: ")[1].split())
+        "stats: ")[1].splitlines()[0].split())
     assert int(stats["lut5_candidates"]) > 0
     assert calls[backend] > 0
     assert calls["pre" if backend == "packed" else "packed"] == 0
@@ -326,4 +390,4 @@ def test_verbose_run_prints_the_function_lists(capsys, tmp_path):
     assert "stats: " in out and "python_nodes=" in out
     names = sorted(os.listdir(tmp_path))
     assert len([n for n in names if n.endswith(".xml")]) == 1
-    assert [n for n in names if not n.endswith(".xml")] == sorted(JOURNAL)
+    assert [n for n in names if not n.endswith(".xml")] == sorted(JOURNAL + TELEMETRY)

@@ -119,7 +119,7 @@ def test_spectral_cli_writes_the_jax_clis_file(name, jax_runs, tmp_path, capsys,
         "--device", "cpu", "-v", "-v", "--output-dir", str(tmp_path)])
     assert rc == 0
     stats = dict(kv.split("=") for kv in capsys.readouterr().out.split(
-        "stats: ")[1].split())
+        "stats: ")[1].splitlines()[0].split())
     assert (int(stats.get("order_tier_dispatches", 0)) > 0) == ORDERED[name]
     got = _xml_files(str(tmp_path))
     if name in rcs:
