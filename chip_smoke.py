@@ -159,7 +159,7 @@ EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "*.xml")))
 # K1-K3 launches of the lexicographic CLI runs, each counted from 0.  The
 # G = 99 resume consumes 114 pivot tiles (its hit is in tile 113): K1
 # (packed) or K2 (pre) sweeps them in the windows of
-# sweeps.pivot_window_schedule, 1, 2, 4, ..., 64 tiles, one window ahead of
+# sweeps._pivot_stream, 1, 2, 4, ..., 64 tiles, one window ahead of
 # the host: 8 launches over tiles [0, 191), the hit's window [63, 127) and
 # the one launched behind it, [127, 191), swept past the hit and dropped.
 # Both backends count the same 5-LUT candidates, those of tiles [0, 114).
@@ -914,19 +914,24 @@ def armed(spec):
         faults.disarm()
 
 
-DES_ARGV = ["-l", "-o", "0", "--seed", "1"]
+# Phases 3-10 pin the serial mux: they hold the single-lane kernels' launch
+# counts and the engine service's path, which the concurrent mux (the card's
+# default, phase 11) changes.  Their journals are the JAX CLI's with the same
+# flag.
+SERIAL_MUX = ["--serial-mux"]
+DES_ARGV = ["-l", "-o", "0", "--seed", "1", *SERIAL_MUX]
 DES_BOX = os.path.join(ROOT, "sboxes", "des_s1.txt")
-G99_ARGV = ["-l", "-o", "0", "--seed", "1", "-g",
+G99_ARGV = ["-l", "-o", "0", "--seed", "1", *SERIAL_MUX, "-g",
             os.path.join(GOLDEN, "rijndael_g99_state.xml")]
 G99_BOX = os.path.join(GOLDEN, "rijndael_planted_bit0.txt")
 # A G = 22 state (planted7_state) resumed against an S-box whose output bit
 # 0 is a planted 7-LUT of its gates (planted7_sbox): the head misses, and
 # the 7-LUT stage A sweeps C(22,7) = 170544 ranks in 6 stream chunks.
-G22_ARGV = ["-l", "-o", "0", "--seed", "1", "-g",
+G22_ARGV = ["-l", "-o", "0", "--seed", "1", *SERIAL_MUX, "-g",
             os.path.join(GOLDEN, "rijndael_g22_state.xml")]
 G22_BOX = os.path.join(GOLDEN, "rijndael_planted7_bit0.txt")
 VV = ["-v", "-v"]
-CRASH_ARGV = ["-l", "-o", "0", "-i", "2", "--seed", "1"]
+CRASH_ARGV = ["-l", "-o", "0", "-i", "2", "--seed", "1", *SERIAL_MUX]
 CRASH_SPEC = "ckpt.write:crash@2"
 HANG_TIMEOUT = ["--dispatch-timeout", "2"]
 
@@ -1208,8 +1213,8 @@ def phase_profile_sweep(dev, tiles: int = 400) -> None:
 def zero_pivot_counts() -> None:
     from sboxgates_tpu_torch.ops import pivot_tile
 
-    pivot_tile.launches.update(packed=0, pre=0, tile=0, pre_tile=0)
-    pivot_tile.tiles.update(packed=0, pre=0, solved=0)
+    pivot_tile.launches.update(packed=0, pre=0, tile=0, pre_tile=0, lanes=0)
+    pivot_tile.tiles.update(packed=0, pre=0, lanes=0, solved=0)
 
 
 def counted(fn, *args):
@@ -1323,7 +1328,7 @@ def phase_profile_des(dev, outdir: str) -> None:
 
 
 GATE_GOLDEN = os.path.join(GOLDEN, "gate")
-GATE_ARGV = ["-o", "0", "--seed", "1"]
+GATE_ARGV = ["-o", "0", "--seed", "1", *SERIAL_MUX]
 PROFILED_NODES = 300
 
 
@@ -1593,7 +1598,7 @@ def rand_gate_state(rng, num_inputs: int, extra: int):
     return st
 
 
-def phase_gate_placement(dev) -> dict:
+def phase_gate_placement(dev, gs=(64, 200, 500)) -> dict:
     """Phase 7e: gate_step on the device and on the host at G = 64, 200 and
     500 (8-input random gate states, a random target: a miss, so the
     triple stream covers C(G, 3)); the same step verdict on both.  Each
@@ -1621,7 +1626,7 @@ def phase_gate_placement(dev) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         return sorted(times)[2], v
 
-    for g in (64, 200, 500):
+    for g in gs:
         st = rand_gate_state(rng, 8, g - 8)
         target = rng.integers(0, 2**32, size=8, dtype=np.uint64).astype(np.uint32)
         dctx = SearchContext(Options(seed=1, device=dev.type, native=False))
@@ -1774,6 +1779,348 @@ def fault_line(label: str, wall: float, counts: dict, stats: dict) -> None:
         f"{stats.get('engine_devcalls', 0)}")
 
 
+# -------------------------------------------------------------------------
+# Phase 11: the job axis
+# -------------------------------------------------------------------------
+
+
+def job_cases():
+    """tests/torch_cli_helpers.py: the job-axis CLI cases and their JAX CLI
+    goldens (tests/data/torch_golden/jobs/<case>/)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_cli_helpers
+
+    return torch_cli_helpers
+
+
+def lane_counts() -> dict:
+    """The lane forms' launch counts (K3's, K1's and K1's tiles)."""
+    from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile
+
+    return {"lut5_filter_lanes": lut5_filter.lane_launches,
+            "pivot_window_lanes": pivot_tile.launches["lanes"],
+            "pivot_window_lanes_tiles": pivot_tile.tiles["lanes"]}
+
+
+def run_case(dev, label: str, case: str, outdir: str):
+    """One job-axis CLI case in process on ``dev`` (``python -m
+    sboxgates_tpu_torch <argv> --device cuda --output-dir <dir>`` with the
+    case's environment): every file of the run directory held against the
+    JAX CLI's for the same command, byte for byte (the XML in the per-box
+    and pXX/ directories, the run and per-box journals), every output gate
+    checked against its S-box.  Returns (wall seconds, metrics.json
+    counters)."""
+    from sboxgates_tpu_torch import cli
+
+    h = job_cases()
+    argv, env = h.golden_case(case)
+    d = os.path.join(outdir, case)
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err), \
+            h.environ(env):
+        rc = cli.main([*argv, "--device", dev.type, "--output-dir", d])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{label} exited {rc}: {err.getvalue()[-2000:]}")
+    h.compare_run(case, d)
+    xmls = verify_outputs(d, argv)
+    with open(os.path.join(d, "metrics.json"), encoding="utf-8") as f:
+        counters = json.load(f)["counters"]
+    log(f"{label}: {xmls} state files in {wall:.3f} s, every file "
+        "byte-identical to the JAX CLI's, outputs verified; "
+        f"device_dispatches {counters.get('device_dispatches', 0)}, "
+        f"fleet_rounds {counters.get('fleet_rounds', 0)}, fleet_dispatches "
+        f"{counters.get('fleet_dispatches', 0)}, fleet_lanes "
+        f"{counters.get('fleet_lanes', 0)}, fleet_submits "
+        f"{counters.get('fleet_submits', 0)}")
+    return wall, counters
+
+
+def verify_outputs(d: str, argv) -> int:
+    """Every output gate of every state file under ``d`` against its S-box
+    (the box of its subdirectory, the permutation for pXX/, else the
+    run's).  Returns the number of state files."""
+    from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.graph.xmlio import load_state
+    from sboxgates_tpu_torch.utils.sbox import load_sbox, permuted_box
+
+    boxes = [a for a in argv if a.endswith(".txt")]
+    n = 0
+    for base, _, files in os.walk(d):
+        sub = os.path.relpath(base, d)
+        for f in files:
+            if not f.endswith(".xml"):
+                continue
+            if sub == ".":
+                sbox, n_in = load_sbox(boxes[-1])
+            elif sub.startswith("p") and len(boxes) == 1:
+                sbox, n_in = load_sbox(boxes[0])
+                sbox = permuted_box(sbox, n_in, int(sub[1:], 16))
+            else:
+                sbox, n_in = load_sbox(next(b for b in boxes if os.path.basename(
+                    b) == sub + ".txt"))
+            st = load_state(os.path.join(base, f))
+            for bit, gid in enumerate(st.outputs):
+                if gid != 0xFFFF and not bool(tt.eq_mask(
+                        st.table(gid), tt.target_table(sbox, bit),
+                        tt.mask_table(n_in))):
+                    raise AssertionError(f"{base}/{f}: output {bit} misses")
+            n += 1
+    return n
+
+
+def lane_pivot_operands(dev, i: int):
+    """PivotOperands of lane ``i`` of 11e's K1 check: G = 99 - i % 3 gates
+    of ``random_state(g, 11 + i)`` (lane 0 is phase 4a's state), the
+    planted 5-LUT over gates 90-94 as the target, every fourth lane with
+    one excluded pivot gate."""
+    import numpy as np
+
+    from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.ops import sweeps
+    from sboxgates_tpu_torch.search.lut import PivotOperands
+
+    g = 99 - i % 3
+    st = random_state(g, 11 + i)
+    tabs = sweeps.as_words(np.pad(st.live_tables(), ((0, 512 - g), (0, 0))), dev)
+    excl = [2 + i % 7] if i % 4 == 3 else []
+    return PivotOperands(g, 256, 512, excl, tabs,
+                         tt.target_table(planted_sbox(st), 0), tt.mask_table(8), dev)
+
+
+def planted_hits(dev, pivots) -> list:
+    """The planted hit's tile of each lane's pivot sweep (single-lane
+    sweeps on the card, seed 5 + lane)."""
+    from sboxgates_tpu_torch.ops import sweeps
+
+    _, w_tab, m_tab = sweeps.lut5_split_tables()
+    jw, jm = sweeps.as_words(w_tab, dev), sweeps.as_words(m_tab, dev)
+    return [int(sweeps.lut5_pivot_stream(
+        *o.stream_args(), 0, o.t_real, jw, jm, 5 + i, tl=256, th=512)[8]) - 1
+        for i, o in enumerate(pivots)]
+
+
+def round_syncs(dev, pivots, hits) -> dict:
+    """Host syncs of one lockstep round on the card, counted by
+    ``utils.guards.sync_guard`` (CUDA's sync debug mode), for 1 lane and
+    for 8: a 5-LUT stream of one chunk per lane (K3 and the solve of every
+    lane; DES-bucket tables, G = 14-21, chunk 2^15), and a pivot stream of
+    one window per lane at that lane's planted hit tile (K1 and one solve
+    round).  The pivot window's counts are read behind an event, which the
+    debug mode does not count."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sboxgates_tpu_torch.ops import sweeps
+    from sboxgates_tpu_torch.utils.guards import sync_guard
+
+    rng = np.random.default_rng(89)
+    _, w_tab, m_tab = sweeps.lut5_split_tables()
+    jw, jm = sweeps.as_words(w_tab, dev), sweeps.as_words(m_tab, dev)
+    binom = sweeps.binom_device(dev)
+    rows5 = []
+    for i in range(8):
+        g = 14 + i
+        tabs = rng.integers(0, 2**32, size=(64, 8), dtype=np.uint64).astype(np.uint32)
+        rows5.append((sweeps.as_words(tabs, dev), binom, g,
+                      sweeps.as_words(tabs[0] ^ tabs[g - 1], dev),
+                      sweeps.as_words(np.full(8, 0xFFFFFFFF, np.uint32), dev),
+                      torch.full((8,), -1, dtype=torch.int32, device=dev), 0,
+                      math.comb(g, 5), jw, jm, 3 + i))
+    rowsp = [(*o.stream_args(), hit, hit + 1, jw, jm, 5 + i)
+             for i, (o, hit) in enumerate(zip(pivots, hits))]
+    out = {}
+    for name, fn, rows in (
+            ("lut5_stream", lambda r: sweeps.lut5_stream_lanes(r, chunk=1 << 15),
+             rows5),
+            ("lut5_pivot_stream", lambda r: sweeps.lut5_pivot_stream_lanes(
+                r, tl=256, th=512), rowsp)):
+        for lanes in (1, 8):
+            fn(rows[:lanes])                       # warm: allocations, pinned
+            with sync_guard(action="count", device=dev) as rep:
+                fn(rows[:lanes])
+            out[(name, lanes)] = rep.syncs
+            log(f"  11e one merged round of {name}, {lanes} lane(s): "
+                f"{rep.syncs} host sync(s) {rep.events}")
+    if out[("lut5_stream", 1)] != 1 or out[("lut5_stream", 8)] != 1 or \
+            out[("lut5_pivot_stream", 8)] != out[("lut5_pivot_stream", 1)]:
+        raise AssertionError(f"11e: one merged round synced {out}")
+    return out
+
+
+def parity_lanes(dev) -> dict:
+    """11e: K3's and K1's lane forms against their plain versions on the
+    card, word for word, at 8 and 64 lanes, and per launch (CUDA events;
+    device ms from torch.profiler) beside the same lanes as single-lane
+    launches.  K3: N = 2^17 5-tuples per lane over 64-row tables (the
+    stream chunk at the DES buckets), every lane its own tables, target and
+    mask.  K1: 256 x 512 tiles of G = 97-99 planted states, lane 0 phase
+    4a's, every lane its own state, target, exclusion and so pair cells,
+    validity and descriptors (:func:`lane_pivot_operands`), at its own
+    window (8 lanes x 8 tiles, 64 lanes x 1 tile), ragged: lanes cut by
+    their t_end, done lanes (t0 = t_end) and two lanes at their planted
+    hit's tile.  The bound counts the tiles
+    the lanes sweep.  Then the host syncs of one merged round
+    (:func:`round_syncs`)."""
+    import numpy as np
+    import torch
+
+    from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile, sweeps
+    from sboxgates_tpu_torch.search.lut import PivotOperands
+
+    rng = np.random.default_rng(88)
+    out = {}
+    attr = attribution()
+    n, b = 1 << 17, 64
+    for lanes in (8, 64):
+        w = lambda shape: torch.from_numpy(  # noqa: E731
+            rng.integers(0, 2**32, size=shape, dtype=np.uint64)
+            .astype(np.uint32).view(np.int32)).to(dev)
+        tables, target, mask = w((lanes, b, 8)), w((lanes, 8)), w((lanes, 8))
+        mask[::3] = sweeps.as_words(tt.mask_table(6), dev)
+        combos = torch.from_numpy(np.sort(
+            rng.integers(0, b, size=(lanes, n, 5)), axis=2).astype(np.int32)).to(dev)
+        args = (tables, combos, target, mask)
+        r = compare(f"K3 lane form {lanes} lanes x N={n} B={b}",
+                    lut5_filter.lut5_filter_cells_lanes(*args),
+                    lut5_filter.lut5_filter_cells_lanes_plain(*args))
+        run = lambda a=args: lut5_filter.lut5_filter_cells_lanes(*a)  # noqa: E731
+        single = lambda a=args, k=lanes: [  # noqa: E731
+            lut5_filter.lut5_filter_cells(*(x[i] for x in a)) for i in range(k)]
+        r.update(
+            ms=time_ms(run, 20),
+            device_ms=kernel_device_ms(run, "lut5_filter_lanes_kernel", reps=10),
+            single_ms=time_ms(single, 5),
+            plain_ms=time_ms(lambda a=args: lut5_filter.lut5_filter_cells_lanes_plain(*a),
+                             1, warmup=1),
+            shape=f"{lanes} lanes x N={n} B={b}", lanes=lanes,
+            **attr.lanes_cost(attr.filter_cost(n, b), lanes),
+        )
+        out[("lut5_filter_lanes", lanes)] = r
+
+    tl, th = 256, 512
+    planted = [lane_pivot_operands(dev, i) for i in range(64)]
+    hits = planted_hits(dev, planted[:8])
+    for lanes, width in ((8, 8), (64, 1)):
+        ops = planted[:lanes]
+        real = [o.t_real for o in ops]
+        descs = torch.zeros((lanes, max(real), 5), dtype=torch.int32)
+        for i, o in enumerate(ops):
+            descs[i, : real[i]] = torch.from_numpy(o.descs)
+        pad = lambda j, o=ops: sweeps._pad_rows(  # noqa: E731
+            [x.stream_args()[j] for x in o], 1 if j < 4 else 0)
+        args = (pad(0), pad(1), pad(2), pad(3), pad(4), pad(5), descs.to(dev))
+        t0 = [(100 + 3 * i) % real[i] for i in range(lanes)]
+        t_end = list(real)
+        for i in range(0, lanes, 4):
+            t_end[i] = min(real[i], t0[i] + max(1, width // 2))   # cut
+        for i in range(1, lanes, 5):
+            t0[i] = t_end[i]                                      # done
+        for i in (2, 6):
+            t0[i] = hits[i]                                       # a hit
+        got = pivot_tile.pivot_window_lanes(*args, t0, width, t_end, tl, th)
+        want = pivot_tile.pivot_window_lanes_plain(*args, t0, width, t_end, tl, th)
+        r = compare(f"K1 lane form {lanes} lanes x {width} tiles of {tl}x{th} "
+                    f"({int(want[3].sum())} feasible)", got, want)
+        active = sum(max(0, min(width, e - s)) for s, e in zip(t0, t_end))
+        run = lambda a=args, t0=t0, te=t_end, w_=width: pivot_tile.pivot_window_lanes(  # noqa: E731
+            *a, t0, w_, te, tl, th)
+        single = lambda a=args, k=lanes, w_=width, t0=t0, te=t_end: [  # noqa: E731
+            pivot_tile.pivot_window(*(x[i] for x in a), t0[i], w_, te[i], tl, th)
+            for i in range(k) if t0[i] < te[i]]
+        r.update(
+            ms=time_ms(run, 10),
+            device_ms=kernel_device_ms(run, "pivot_window_lanes_kernel", reps=5),
+            single_ms=time_ms(single, 3),
+            plain_ms=time_ms(lambda a=args, t0=t0, te=t_end, w_=width:
+                             pivot_tile.pivot_window_lanes_plain(
+                                 *a, t0, w_, te, tl, th), 1, warmup=0),
+            shape=f"{lanes} lanes x {width} tiles of {tl}x{th} (G=97-99, every "
+                  f"lane its own state and target), {active} tiles swept",
+            lanes=lanes, tiles=active,
+            **attr.window_lanes_cost(active, lanes * width, tl, th),
+        )
+        out[("pivot_window_lanes", lanes)] = r
+    for (name, lanes), r in out.items():
+        b_ms, b_by, b_form = bound(r)
+        dms = r["device_ms"]
+        log(f"  11e {name} {r['shape']}: {r['ms']:.4f} ms per launch (device "
+            f"{'not in the trace' if dms is None else f'{dms:.4f} ms'}), the "
+            f"same lanes as single-lane launches {r['single_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {b_ms:.5f} ms by {b_by} ({b_form})")
+    out["syncs"] = round_syncs(dev, planted[:8], hits)
+    return out
+
+
+#: Phase 11's CLI runs: (label, case of tests/torch_cli_helpers.py).
+JOB_RUNS = (
+    ("11a fleet", "fleet_des8_dev_lut_o0"),
+    ("11a serial-jobs", "serial_des8_dev_lut_o0"),
+    ("11b fleet default route", "fleet_des8_lut_o0"),
+    ("11b batched default route", "mb_des8_lut_o0"),
+    ("11c fleet permute sweep", "fleet_ps_des_s1_dev"),
+    ("11d fleet G=99 restarts", "fleet_g99_i8_dev"),
+    ("11f engine mux threads", "emt4_g99_mux"),
+    ("11f concurrent mux", "mux_des_s1_dev"),
+    ("11f serial mux", "serial_mux_des_s1_dev"),
+    ("11f concurrent mux G=99 device route", "mux_g99_dev"),
+    ("11f concurrent mux G=99 default route", "mux_g99_native"),
+)
+
+
+def phase_jobs(dev, on_path) -> dict:
+    """Phase 11's CLI runs, each a counted path (launch counts zeroed just
+    before it and read just after); returns {case: (counts, wall,
+    counters)}."""
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    out = {}
+    try:
+        for label, case in JOB_RUNS:
+            box = {}
+            counts = on_path(case, lambda lb=label, c=case: box.update(
+                r=run_case(dev, f"phase {lb} {c}", c, outdir)))
+            out[case] = (counts, *box["r"])
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    fleet, serial = out["fleet_des8_dev_lut_o0"], out["serial_des8_dev_lut_o0"]
+    log(f"  11a: fleet {fleet[1]:.3f} s, {fleet[2].get('fleet_rounds')} merged "
+        f"rounds for {fleet[2].get('fleet_submits')} submits, "
+        f"{fleet[0]['lut5_filter_lanes']} K3 lane launches and "
+        f"{fleet[0]['lut5_filter']} single-lane, "
+        f"{fleet[2].get('device_dispatches')} device_dispatches; serial jobs "
+        f"{serial[1]:.3f} s, {serial[0]['lut5_filter_lanes']} K3 lane launches "
+        f"(the concurrent mux's merged heads) and {serial[0]['lut5_filter']} "
+        f"single-lane, {serial[2].get('device_dispatches')} device_dispatches "
+        "(a mux rendezvous group is not counted, as in the JAX package)")
+    for case in ("fleet_des8_dev_lut_o0", "fleet_ps_des_s1_dev"):
+        if out[case][0]["lut5_filter_lanes"] <= 0:
+            raise AssertionError(f"{case}: K3's lane form never launched")
+    if out["fleet_g99_i8_dev"][0]["pivot_window_lanes"] <= 0:
+        raise AssertionError("fleet_g99_i8_dev: K1's lane form never launched")
+    return out
+
+
+def phase_paths(dev) -> dict:
+    """``--paths``: the single-lane device-route paths, timed, for a
+    comparison of two trees in one call (this script run from each tree's
+    root in turn): phase 3's DES S1 search (checked against its golden
+    file), phase 4b's pivot node and sweeps alone at G = 99 and 200, and
+    phase 7e's gate step at G = 64 and 200."""
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        _, _, des_s = phase_main_path(dev, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    pivot = {g: {k: r[k] for k in ("seconds", "sweep_seconds", "sweep_pre_seconds")}
+             for g, r in phase_pivot(dev).items()}
+    gate = {g: r["device_ms"] for g, r in phase_gate_placement(dev, (64, 200)).items()}
+    return {"des_s1_s": des_s, "pivot": pivot, "gate_step_ms": gate}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1839,6 +2186,17 @@ KERNELS = {
 }
 
 
+# The lane forms (phase 11): (route, source, TPU kernel replaced, home path).
+LANE_KERNELS = {
+    "lut5_filter_lanes": ("cuda", "sboxgates_tpu_torch/csrc/lut5_filter.cu",
+                          "sboxgates_tpu/ops/pallas_filter.py:58",
+                          "fleet_des8_dev_lut_o0"),
+    "pivot_window_lanes": ("cuda", "sboxgates_tpu_torch/csrc/pivot_tile.cu",
+                           "sboxgates_tpu/ops/pallas_pivot.py:133",
+                           "fleet_g99_i8_dev"),
+}
+
+
 def bound(r: dict):
     """(bound_ms, bound_by, formulation) of a timed shape on the H100:
     ``attribution.bound``."""
@@ -1860,21 +2218,32 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     phase_build()
+    if "--paths" in sys.argv[1:]:
+        # The single-lane paths' times only (phase_paths), no result line.
+        print(gpu_line(), flush=True)
+        print(json.dumps(phase_paths(dev)), flush=True)
+        return 0
     log("phase 2 parity")
     par = phase_parity(dev)
+    # Phase 11e, the lane forms against their plain versions, beside the
+    # single-lane kernels' parity (and in the same profiler state).
+    log("phase 11e lane-form parity")
+    lanes_par = parity_lanes(dev)
     if "--quick" in sys.argv[1:]:
-        # Build + parity only: a first check of new kernels, no result line.
+        # Build and parity only: a first check of new kernels, no result
+        # line.
         return 0
 
     def on_path(name, drive) -> dict:
         """Launch counts of one main-path run: 0 right before, read right
         after."""
         lut5_filter.launches = 0
+        lut5_filter.lane_launches = 0
         zero_pivot_counts()
         spectral.launches = 0
         cuda_kernel.launches = 0
         drive()
-        counts = {
+        counts = lane_counts() | {
             "lut5_filter": lut5_filter.launches,
             "pivot_window": pivot_tile.launches["packed"],
             "pivot_window_tiles": pivot_tile.tiles["packed"],
@@ -1918,8 +2287,6 @@ def main() -> int:
             raise AssertionError(f"{name} never launched on path {home}")
     if paths["g99_packed"]["pivot_pre"] or paths["g99_pre"]["pivot_window"]:
         raise AssertionError("--pivot-backend did not pick the tile kernel")
-    if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
-        raise AssertionError("a search path launched a single-tile K1 or K2")
     for path in ("g99_packed", "g99_pre"):
         if stats[path].get("lut5_candidates") != G99_CANDIDATES:
             raise AssertionError(
@@ -2027,14 +2394,28 @@ def main() -> int:
             raise AssertionError(f"10 {name}: {paths[f'traced_{name}'][kernel]} "
                                  f"{kernel} launches, expected {launches}")
 
+    # Phase 11: the job axis, the CLI runs of JOB_RUNS, each a counted path
+    # (11e ran after phase 2).
+    jobs = phase_jobs(dev, on_path)
+    for case, (counts, _, _) in jobs.items():
+        paths[case] = counts
+    if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
+        raise AssertionError("a search path launched a single-tile K1 or K2")
+    for name in LANE_KERNELS:
+        par[name] = dict(lanes_par[(name, 8)])
+        par[name]["also"] = [lanes_par[(name, 64)]]
+
     kernels = []
-    for name, (route, source, replaces, home) in KERNELS.items():
+    for name, (route, source, replaces, home) in (KERNELS | LANE_KERNELS).items():
         r = par[name]
         bound_ms, bound_by, bound_form = bound(r)
         also = []
         for extra in r.get("also", []):
             b_ms, b_by, b_form = bound(extra)
-            also.append({k: extra[k] for k in ("shape", "ms", "device_ms", "plain_ms")}
+            also.append({k: extra[k] for k in ("shape", "ms", "device_ms", "plain_ms")
+                         if k in extra}
+                        | ({"single_ms": extra["single_ms"]} if "single_ms" in extra
+                           else {})
                         | {"bound_ms": b_ms, "bound_by": b_by,
                            "bound_formulation": b_form})
             log(f"  {name} at {extra['shape']}: {extra['ms']:.4f} ms per call "
@@ -2059,7 +2440,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_formulation": bound_form,
             "library_ms": None, "shape": r["shape"], "also": also,
-        } | ({"gemm_only_ms": r["gemm_only_ms"]} if "gemm_only_ms" in r else {}))
+        } | ({"gemm_only_ms": r["gemm_only_ms"]} if "gemm_only_ms" in r else {})
+          | ({"single_lane_ms": r["single_ms"]} if "single_ms" in r else {}))
     for g, r in rates.items():
         log(f"pivot G={g}: {r['cand_per_s']:.6e} cand/s (node), "
             f"{r['sweep_cand_per_s']:.6e} cand/s (sweep alone), "

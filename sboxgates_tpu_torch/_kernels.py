@@ -55,6 +55,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # tables, n_tables, combos, n, target, mask, req1, req0, stream, ev0, ev1
     "sbgt_lut5_filter": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    # tables, n_tables, combos, n, lanes, target, mask, req1, req0, stream,
+    # ev0, ev1
+    "sbgt_lut5_filter_lanes": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                               _P],
     # l1, l0, l_plane_stride, hcs, h_plane_stride, pmw, tl, th,
     # req1, req0, stream
     "sbgt_pivot_packed": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
@@ -63,6 +67,12 @@ _SIGNATURES = {
     # stream, ev0, ev1
     "sbgt_pivot_window": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # tables, tab_lane, l1, l0, lstride, l_lane, hcs, hstride, h_lane,
+    # lowvalid, highvalid, valid_lane, descs, desc_lane, t0, t_end, lanes,
+    # n, tl, th, req1, req0, feas, counts, stream, ev0, ev1
+    "sbgt_pivot_window_lanes": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P,
+                                _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P,
+                                _P, _P, _P, _P, _P],
     # lhs1, lhs0, rhsb, tl, th, req1, req0, stream
     "sbgt_pivot_pre": [_P, _P, _P, _I, _I, _P, _P, _P],
     # tables, l1, l0, hc, rows, lowvalid, highvalid, descs, t0, n, t_end,
@@ -207,3 +217,16 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def upload(values, dtype, device):
+    """Host values (nested lists or a numpy array) as a ``dtype`` tensor on
+    ``device``.  On the card the copy runs from pinned memory behind the
+    stream's earlier work: a copy from pageable memory would wait for the
+    stream, a host sync."""
+    import torch
+
+    t = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

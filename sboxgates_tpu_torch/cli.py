@@ -37,6 +37,13 @@ or the JAX CLI's, to the files the uninterrupted run writes.
 chunk stream), and ``SBG_FAULTS`` the fault sites
 (``resilience/faults.py``).
 
+The job axis, as in the JAX CLI: several S-box files or ``--permute-sweep``
+run a sweep of jobs (``search/multibox.py``; states in per-box or ``pXX/``
+subdirectories), ``--batch-iterations`` runs the ``-i`` restarts as one
+batch, and ``--fleet`` runs the jobs as fleet waves whose sweeps merge
+into the kernels' lane forms; ``--serial-mux`` turns off the concurrent
+mux that a card runs by default (``Options.parallel_mux``).
+
 Telemetry, as in the JAX CLI: with an explicit ``--output-dir`` (or
 ``--resume-run``) a run also writes the heartbeat ``telemetry.jsonl``
 (``--metrics-interval``) and an atomic ``metrics.json`` at exit, and an
@@ -95,6 +102,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="increase verbosity (repeatable)")
     p.add_argument("--seed", type=int, default=None,
                    help="PRNG seed for reproducible randomized search")
+    p.add_argument("--batch-iterations", action="store_true",
+                   help="run the -i restarts as one concurrent batch "
+                        "(independent restarts whose sweeps merge into "
+                        "lane-batched launches) instead of a serial loop")
+    p.add_argument("--permute-sweep", action="store_true",
+                   help="search every input permutation (all 2^n -p values) "
+                        "as one sweep of jobs; states land in pXX/ "
+                        "subdirectories of --output-dir")
+    p.add_argument("--serial-jobs", action="store_true",
+                   help="run multi-S-box / permute-sweep jobs serially "
+                        "instead of as a rendezvous batch")
+    p.add_argument("--fleet", action="store_true",
+                   help="fleet-batched execution: all jobs (multi-S-box "
+                        "sweeps, --permute-sweep, -i restarts) run "
+                        "concurrently and their same-kind sweeps, node heads "
+                        "and streams alike, merge into ONE launch of the "
+                        "kernels' lane forms per round")
+    p.add_argument("--fleet-candidates", type=int, default=1, metavar="C",
+                   help="candidate-axis shards inside each fleet lane "
+                        "(default 1; only 1 is supported: the multi-card "
+                        "fleet mesh is not ported)")
+    p.add_argument("--fleet-max-wave", type=int, default=256, metavar="N",
+                   help="jobs per fleet wave (resident-thread cap, "
+                        "default 256).  The wave is the unit per-job "
+                        "seeds are drawn in, so this shapes the "
+                        "deterministic draw stream and is journaled for "
+                        "--resume-run")
+    p.add_argument("--serial-mux", action="store_true",
+                   help="disable concurrent exploration of mux select bits "
+                        "(on by default on a card, off on the CPU; one "
+                        "sweep in flight at a time)")
     p.add_argument("--output-dir", default=None, metavar="DIR",
                    help="directory for saved XML states (default: cwd)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -118,6 +156,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="chunks the host chunk stream makes ahead and filter "
                         "launches it keeps in flight (default 2; 1 = serial; "
                         "results are bit-identical either way)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="accepted for the JAX CLI's command lines: its "
+                        "persistent XLA compile cache has nothing to cache "
+                        "here (the CUDA kernels are built once, at first "
+                        "use); no effect")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="accepted for the JAX CLI's command lines: there "
+                        "is no background kernel warmer here; no effect")
     p.add_argument("--resume-run", metavar="DIR", default=None,
                    help="resume a killed search from DIR's journal (written "
                         "by a run with --output-dir DIR, of this CLI or the "
@@ -212,14 +258,7 @@ JOURNAL_KEY_DEFAULTS = {
 #: records when they are not given.  A journal that recorded another value
 #: is refused by --resume-run, one line naming the setting.
 UNPORTED_KEYS = {
-    "batch_iterations": False,
-    "permute_sweep": False,
-    "serial_jobs": False,
-    "serial_mux": False,
     "mesh": False,
-    "fleet": False,
-    "fleet_candidates": 1,
-    "fleet_max_wave": 256,
     "shard_sweep": False,
     "serve": False,
     "serve_lanes": 4,
@@ -232,11 +271,11 @@ UNPORTED_KEYS = {
 }
 
 #: Unported settings that change what a resumed run would do; the others
-#: (the serial mux and jobs switches, the serve and fleet tuning) are
-#: restored and have no effect in a single-process, single-file run.
+#: (the serve tuning) are restored and have no effect in a
+#: single-process run.
 _REFUSED = (
-    "fleet", "mesh", "serve", "batch_iterations", "chain_rounds",
-    "shard_sweep", "permute_sweep", "result_store", "serve_port",
+    "mesh", "serve", "chain_rounds", "shard_sweep", "result_store",
+    "serve_port",
 )
 
 
@@ -278,18 +317,16 @@ def _resume_config(args) -> Optional[int]:
             f"setting {e}; it was written by an incompatible build — "
             "re-run the search instead of resuming."
         )
-    for key in _REFUSED:
-        if getattr(args, key) != UNPORTED_KEYS[key]:
-            return _err(
-                f"Error: journal in {args.resume_run} records {key}="
-                f"{getattr(args, key)!r}, which this port does not run; "
-                "resume it with python -m sboxgates_tpu."
-            )
-    if len(args.input) > 1:
+    refused = [(k, getattr(args, k)) for k in _REFUSED
+               if getattr(args, k) != UNPORTED_KEYS[k]]
+    if args.fleet_candidates != 1:
+        refused.append(("fleet_candidates", args.fleet_candidates))
+    if refused:
+        key, value = refused[0]
         return _err(
-            f"Error: journal in {args.resume_run} records several S-box "
-            "files, which this port does not run; resume it with python -m "
-            "sboxgates_tpu."
+            f"Error: journal in {args.resume_run} records {key}="
+            f"{value!r}, which this port does not run; resume it with "
+            "python -m sboxgates_tpu."
         )
     if journal.complete:
         print(f"Run in {args.resume_run} is already complete; nothing to resume.")
@@ -367,16 +404,32 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _err("Cannot convert more than one file.")
     if multibox and args.graph is not None:
         return _err("Cannot combine -g with multiple S-box files.")
+    if args.permute_sweep and (multibox or args.graph is not None):
+        return _err("--permute-sweep takes a single S-box file and no -g.")
+    if args.permute_sweep and args.permute:
+        return _err("--permute-sweep replaces -p; do not combine them.")
+    if args.fleet and args.serial_jobs:
+        return _err(
+            "--fleet and --serial-jobs are incompatible: the fleet's "
+            "whole point is merging the jobs' dispatches."
+        )
     if args.candidate_order not in ("lex", "spectral"):
         return _err(f"Bad candidate order value: {args.candidate_order}")
+    if args.fleet_candidates < 1:
+        return _err(
+            f"Bad fleet candidates value: {args.fleet_candidates}"
+        )
+    if args.fleet_max_wave < 1:
+        return _err(f"Bad fleet max wave value: {args.fleet_max_wave}")
     if args.metrics_interval < 0:
         return _err(f"Bad metrics interval value: {args.metrics_interval}")
     if args.status_port is not None and not (0 <= args.status_port <= 65535):
         return _err(f"Bad status port value: {args.status_port}")
-    if multibox:
+    if args.fleet_candidates != 1:
         return _err(
-            "Error: several S-box files in one run are not ported yet; run "
-            "one file per process (or use python -m sboxgates_tpu)."
+            f"Error: --fleet-candidates {args.fleet_candidates} shards fleet "
+            "lanes over several cards, which is not ported yet (use 1, or "
+            "python -m sboxgates_tpu)."
         )
 
     # Conversion mode: deserialize -> emit, no search (sboxgates.c:1097-1114).
@@ -396,16 +449,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             sys.stdout.write(digraph_text(st))
         return 0
 
-    # The JAX package's switches of the native runtime: SBG_DISABLE_NATIVE
-    # sends every node to the device; its threaded engine mux is not ported
-    # (and matters only where an engine runs).
+    # The JAX package's switch of the native runtime: SBG_DISABLE_NATIVE
+    # sends every node to the device.  SBG_ENGINE_MUX_THREADS is read by the
+    # context (SearchContext.engine_mux_threads).
     native = not os.environ.get("SBG_DISABLE_NATIVE")
-    mux_threads = os.environ.get("SBG_ENGINE_MUX_THREADS", "1")
-    if native and mux_threads.strip() not in ("", "0", "1"):
-        return _err(
-            f"Error: SBG_ENGINE_MUX_THREADS={mux_threads} is not supported: "
-            "the port runs the serial native engine (unset it or set it to 1)."
-        )
     if args.output_dir is None:
         args.output_dir = "."
 
@@ -460,6 +507,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         dispatch_timeout_s=args.dispatch_timeout,
         trace=args.trace is not None,
         status_port=args.status_port,
+        batch_restarts=args.batch_iterations,
+        parallel_mux=False if args.serial_mux else None,
+        fleet=args.fleet,
+        fleet_max_wave=args.fleet_max_wave,
     )
     try:
         ctx = SearchContext(opt)
@@ -489,6 +540,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             from .resilience.journal import SearchJournal
 
             journal = SearchJournal.start(args.output_dir, config=run_config)
+        sweep = multibox or args.permute_sweep
         if args.graph is not None:
             print(f"Loaded {args.graph}.")
 
@@ -501,6 +553,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 bf.GATE_NAMES[f.fun] + " " for f in ctx.avail_not))
             print("Generated 3-input gates: " + "".join(
                 "%02x " % f.fun for f in ctx.avail_3))
+        if sweep:
+            return _run_sweep(ctx, args, sbox, num_inputs, journal, tele)
 
         if args.single_output != -1:
             generate_graph_one_output(
@@ -510,16 +564,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             generate_graph(ctx, st, targets, save_dir=args.output_dir,
                            journal=journal)
-        tele.teardown()
-        if args.verbose >= 2:
-            print("")
-            print("stats: " + " ".join(
-                f"{k}={v}" for k, v in sorted(ctx.stats.items())
-            ))
-            # The JAX CLI's per-phase report.
-            print("")
-            print(ctx.prof.report(ctx.stats))
-        return 0
+        return _finish(ctx, args, tele)
     except BaseException as e:
         if not isinstance(e, SystemExit):
             # Dump before the teardown: the heartbeat's incident hook is
@@ -533,6 +578,57 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise
     finally:
         tele.teardown()
+
+
+def _finish(ctx, args, tele) -> int:
+    tele.teardown()
+    if args.verbose >= 2:
+        print("")
+        print("stats: " + " ".join(
+            f"{k}={v}" for k, v in sorted(ctx.stats.items())
+        ))
+        # The JAX CLI's per-phase report.
+        print("")
+        print(ctx.prof.report(ctx.stats))
+    return 0
+
+
+def _run_sweep(ctx, args, sbox, num_inputs, journal, tele) -> int:
+    """Several S-box files or ``--permute-sweep``: the sweep of jobs of
+    :mod:`.search.multibox` (serial with ``--serial-jobs``, a fleet with
+    ``--fleet``, else the drivers' default), states in per-box (``pXX/``)
+    subdirectories of the output directory."""
+    from .search.multibox import (
+        load_box_jobs,
+        permute_sweep_jobs,
+        search_boxes_all_outputs,
+        search_boxes_one_output,
+    )
+
+    try:
+        if len(args.input) > 1:
+            boxes = load_box_jobs(args.input, args.permute)
+        else:
+            boxes = permute_sweep_jobs(sbox, num_inputs)
+    except OSError:
+        return _err("Error when opening target S-box file.")
+    except SboxError as e:
+        return _err(str(e))
+    batched = "fleet" if args.fleet else False if args.serial_jobs else None
+    try:
+        if args.single_output != -1:
+            search_boxes_one_output(
+                ctx, boxes, args.single_output, save_dir=args.output_dir,
+                batched=batched, journal=journal,
+            )
+        else:
+            search_boxes_all_outputs(
+                ctx, boxes, save_dir=args.output_dir, batched=batched,
+                journal=journal,
+            )
+    except ValueError as e:
+        return _err(f"Error: {e}")
+    return _finish(ctx, args, tele)
 
 
 class _Telemetry:

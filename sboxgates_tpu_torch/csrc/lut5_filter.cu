@@ -18,6 +18,11 @@
 // words sit in shared memory for the block, each thread owns one candidate,
 // its cells live in registers, and the 32 required bits are OR-accumulated
 // per cell over the 8 words before the one compare-and-pack at the end.
+//
+// The lane form (sbgt_lut5_filter_lanes) runs the filters of many search
+// jobs in one launch: blockIdx.y picks the lane, whose block stages that
+// lane's tables (at most 512 x 32 B = 16 KB) and runs the same body.  Its
+// bound is the lanes' summed operations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,13 +34,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWords = 8;
 
-__global__ void __launch_bounds__(kThreads)
-lut5_filter_kernel(const uint32_t* __restrict__ tables, int n_tables,
-                   const int32_t* __restrict__ combos, int n,
-                   const uint32_t* __restrict__ target,
-                   const uint32_t* __restrict__ mask,
-                   uint32_t* __restrict__ req1, uint32_t* __restrict__ req0) {
-  extern __shared__ uint32_t s_tab[];  // [n_tables][8]
+// The block's work: stage one lane's tables and need words in shared
+// memory, then one candidate per thread.  Shared by the single-lane kernel
+// and the lane form (each block of which serves one lane).
+__device__ __forceinline__ void filter_block(
+    const uint32_t* __restrict__ tables, int n_tables,
+    const int32_t* __restrict__ combos, int n,
+    const uint32_t* __restrict__ target, const uint32_t* __restrict__ mask,
+    uint32_t* __restrict__ req1, uint32_t* __restrict__ req0,
+    uint32_t* s_tab) {
   __shared__ uint32_t s_need1[kWords], s_need0[kWords];
   for (int i = threadIdx.x; i < n_tables * kWords; i += blockDim.x) {
     s_tab[i] = tables[i];
@@ -108,6 +115,34 @@ lut5_filter_kernel(const uint32_t* __restrict__ tables, int n_tables,
   req0[idx] = p0;
 }
 
+__global__ void __launch_bounds__(kThreads)
+lut5_filter_kernel(const uint32_t* __restrict__ tables, int n_tables,
+                   const int32_t* __restrict__ combos, int n,
+                   const uint32_t* __restrict__ target,
+                   const uint32_t* __restrict__ mask,
+                   uint32_t* __restrict__ req1, uint32_t* __restrict__ req0) {
+  extern __shared__ uint32_t s_tab[];  // [n_tables][8]
+  filter_block(tables, n_tables, combos, n, target, mask, req1, req0, s_tab);
+}
+
+// Lane form: blockIdx.y is the lane.  Lane l reads tables[l] ([n_tables][8]),
+// combos[l] ([n][5]), target[l] and mask[l] ([8]) and writes req1[l] and
+// req0[l] ([n]); each block stages its own lane's tables as above.
+__global__ void __launch_bounds__(kThreads)
+lut5_filter_lanes_kernel(const uint32_t* __restrict__ tables, int n_tables,
+                         const int32_t* __restrict__ combos, int n,
+                         const uint32_t* __restrict__ target,
+                         const uint32_t* __restrict__ mask,
+                         uint32_t* __restrict__ req1,
+                         uint32_t* __restrict__ req0) {
+  extern __shared__ uint32_t s_tab[];  // [n_tables][8]
+  const size_t lane = blockIdx.y;
+  filter_block(tables + lane * n_tables * kWords, n_tables,
+               combos + lane * (size_t)n * 5, n, target + lane * kWords,
+               mask + lane * kWords, req1 + lane * (size_t)n,
+               req0 + lane * (size_t)n, s_tab);
+}
+
 }  // namespace
 
 // ev0/ev1: the launch's timing events or null (launch_timing.cuh).
@@ -122,6 +157,27 @@ extern "C" int sbgt_lut5_filter(const void* tables, int n_tables,
   const cudaError_t e = sbgt_record(ev0, s);
   if (e != cudaSuccess) return (int)e;
   lut5_filter_kernel<<<blocks, kThreads, smem, s>>>(
+      (const uint32_t*)tables, n_tables, (const int32_t*)combos, n,
+      (const uint32_t*)target, (const uint32_t*)mask, (uint32_t*)req1,
+      (uint32_t*)req0);
+  return sbgt_launched(ev1, s);
+}
+
+// The lane form: ``lanes`` independent filters in one launch (tables
+// [lanes][n_tables][8], combos [lanes][n][5], target/mask [lanes][8],
+// req1/req0 [lanes][n]).
+extern "C" int sbgt_lut5_filter_lanes(const void* tables, int n_tables,
+                                      const void* combos, int n, int lanes,
+                                      const void* target, const void* mask,
+                                      void* req1, void* req0, void* stream,
+                                      void* ev0, void* ev1) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || lanes <= 0) return sbgt_no_launch(ev0, ev1, s);
+  const dim3 grid((n + kThreads - 1) / kThreads, lanes);
+  const size_t smem = (size_t)n_tables * kWords * sizeof(uint32_t);
+  const cudaError_t e = sbgt_record(ev0, s);
+  if (e != cudaSuccess) return (int)e;
+  lut5_filter_lanes_kernel<<<grid, kThreads, smem, s>>>(
       (const uint32_t*)tables, n_tables, (const int32_t*)combos, n,
       (const uint32_t*)target, (const uint32_t*)mask, (uint32_t*)req1,
       (uint32_t*)req0);

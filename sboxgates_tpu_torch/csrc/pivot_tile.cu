@@ -34,6 +34,13 @@
 // package's lut5_pivot_stream (sboxgates_tpu/ops/sweeps.py:1121) runs its
 // tile loop in one device dispatch.  The fused epilogue adds about 4
 // operations per candidate to the body's 576.
+//
+// The lane form (sbgt_pivot_window_lanes) sweeps the windows of many
+// search jobs in one launch, the lane flattened into the grid's third
+// axis (z = lane * n + tile): each lane reads its own tables, cell words,
+// validity and descriptors through lane strides and its own t0 and t_end
+// from the card, so jobs at different tiles share the launch.  Its bound
+// is the lanes' summed work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,27 +154,22 @@ pivot_packed_kernel(const uint32_t* __restrict__ l1,
 // feasible count to counts[z] (warp ballot + popc, one atomicAdd per
 // block; counts is zeroed by the launcher).  Tiles at or past t_end write
 // all-ones words and no feasible candidate, and read no descriptor.
-__global__ void __launch_bounds__(kBH)
-pivot_window_kernel(const uint32_t* __restrict__ tables,
-                    const uint32_t* __restrict__ l1,
-                    const uint32_t* __restrict__ l0, int lstride,
-                    const uint32_t* __restrict__ hcs, int hstride,
-                    const uint8_t* __restrict__ lowvalid,
-                    const uint8_t* __restrict__ highvalid,
-                    const int32_t* __restrict__ descs, int t0, int t_end,
-                    int tl, int th, uint32_t* __restrict__ req1,
-                    uint32_t* __restrict__ req0, uint8_t* __restrict__ feas,
-                    int32_t* __restrict__ counts) {
+// One block of the window: tile t of descs, its outputs at req1/req0/feas
+// (already offset to the tile) and its feasible count at *tile_count.  Shared by the
+// single-lane window kernel and its lane form.
+__device__ __forceinline__ void window_block(
+    const uint32_t* __restrict__ tables, const uint32_t* __restrict__ l1,
+    const uint32_t* __restrict__ l0, int lstride,
+    const uint32_t* __restrict__ hcs, int hstride,
+    const uint8_t* __restrict__ lowvalid,
+    const uint8_t* __restrict__ highvalid, const int32_t* __restrict__ descs,
+    int t, int t_end, int tl, int th, uint32_t* __restrict__ req1,
+    uint32_t* __restrict__ req0, uint8_t* __restrict__ feas,
+    int32_t* __restrict__ tile_count) {
   __shared__ LowTile lt;
   __shared__ uint32_t pm[kWords];
   __shared__ int lvalid[kBL];
   __shared__ int warp_count[kBH / 32];
-  const int z = blockIdx.z;
-  const int t = t0 + z;
-  const size_t tile_off = (size_t)z * tl * th;
-  req1 += tile_off;
-  req0 += tile_off;
-  feas += tile_off;
   const int lo_base = blockIdx.y * kBL;
   const int h = blockIdx.x * kBH + threadIdx.x;
   const bool h_in = h < th;
@@ -236,8 +238,57 @@ pivot_window_kernel(const uint32_t* __restrict__ tables,
     int sum = 0;
 #pragma unroll
     for (int i = 0; i < kBH / 32; ++i) sum += warp_count[i];
-    if (sum) atomicAdd(&counts[z], sum);
+    if (sum) atomicAdd(tile_count, sum);
   }
+}
+
+__global__ void __launch_bounds__(kBH)
+pivot_window_kernel(const uint32_t* __restrict__ tables,
+                    const uint32_t* __restrict__ l1,
+                    const uint32_t* __restrict__ l0, int lstride,
+                    const uint32_t* __restrict__ hcs, int hstride,
+                    const uint8_t* __restrict__ lowvalid,
+                    const uint8_t* __restrict__ highvalid,
+                    const int32_t* __restrict__ descs, int t0, int t_end,
+                    int tl, int th, uint32_t* __restrict__ req1,
+                    uint32_t* __restrict__ req0, uint8_t* __restrict__ feas,
+                    int32_t* __restrict__ counts) {
+  const int z = blockIdx.z;
+  const size_t tile_off = (size_t)z * tl * th;
+  window_block(tables, l1, l0, lstride, hcs, hstride, lowvalid, highvalid,
+               descs, t0 + z, t_end, tl, th, req1 + tile_off,
+               req0 + tile_off, feas + tile_off, counts + z);
+}
+
+// The lane form: blockIdx.z = lane * n + tile.  Lane l has its own
+// tables, cell words, validity and descriptors (each operand's lane
+// stride in elements: tab_lane, l_lane, h_lane, valid_lane, desc_lane) and
+// its own window [t0[l], t0[l] + n) cut at t_end[l]; a lane with
+// t0 >= t_end (done, or past its last tile) writes all-ones words and no
+// feasible candidate, as a tile past t_end does.  Outputs [lanes][n][tl][th]
+// and counts [lanes][n].
+__global__ void __launch_bounds__(kBH)
+pivot_window_lanes_kernel(
+    const uint32_t* __restrict__ tables, int tab_lane,
+    const uint32_t* __restrict__ l1, const uint32_t* __restrict__ l0,
+    int lstride, int l_lane, const uint32_t* __restrict__ hcs, int hstride,
+    int h_lane, const uint8_t* __restrict__ lowvalid,
+    const uint8_t* __restrict__ highvalid, int valid_lane,
+    const int32_t* __restrict__ descs, int desc_lane,
+    const int32_t* __restrict__ t0, const int32_t* __restrict__ t_end, int n,
+    int tl, int th, uint32_t* __restrict__ req1, uint32_t* __restrict__ req0,
+    uint8_t* __restrict__ feas, int32_t* __restrict__ counts) {
+  const int z = blockIdx.z;
+  const int lane = z / n;
+  const size_t tile_off = (size_t)z * tl * th;
+  window_block(tables + (size_t)lane * tab_lane, l1 + (size_t)lane * l_lane,
+               l0 + (size_t)lane * l_lane, lstride,
+               hcs + (size_t)lane * h_lane, hstride,
+               lowvalid + (size_t)lane * valid_lane,
+               highvalid + (size_t)lane * valid_lane,
+               descs + (size_t)lane * desc_lane, t0[lane] + z % n, t_end[lane],
+               tl, th, req1 + tile_off, req0 + tile_off, feas + tile_off,
+               counts + z);
 }
 
 }  // namespace
@@ -278,5 +329,35 @@ extern "C" int sbgt_pivot_window(const void* tables, const void* l1,
       lstride, (const uint32_t*)hcs, hstride, (const uint8_t*)lowvalid,
       (const uint8_t*)highvalid, (const int32_t*)descs, t0, t_end, tl, th,
       (uint32_t*)req1, (uint32_t*)req0, (uint8_t*)feas, (int32_t*)counts);
+  return sbgt_launched(ev1, s);
+}
+
+// The lane form of sbgt_pivot_window: ``lanes`` windows of n tiles in one
+// launch; t0 and t_end are int32[lanes] on the card, counts int32[lanes][n]
+// (zeroed here, on the same stream).
+extern "C" int sbgt_pivot_window_lanes(
+    const void* tables, int tab_lane, const void* l1, const void* l0,
+    int lstride, int l_lane, const void* hcs, int hstride, int h_lane,
+    const void* lowvalid, const void* highvalid, int valid_lane,
+    const void* descs, int desc_lane, const void* t0, const void* t_end,
+    int lanes, int n, int tl, int th, void* req1, void* req0, void* feas,
+    void* counts, void* stream, void* ev0, void* ev1) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (lanes <= 0 || n <= 0 || tl <= 0 || th <= 0) {
+    return sbgt_no_launch(ev0, ev1, s);
+  }
+  if ((long long)lanes * n > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(
+      counts, 0, (size_t)lanes * n * sizeof(int32_t), s);
+  if (e == cudaSuccess) e = sbgt_record(ev0, s);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((th + kBH - 1) / kBH, (tl + kBL - 1) / kBL, lanes * n);
+  pivot_window_lanes_kernel<<<grid, kBH, 0, s>>>(
+      (const uint32_t*)tables, tab_lane, (const uint32_t*)l1,
+      (const uint32_t*)l0, lstride, l_lane, (const uint32_t*)hcs, hstride,
+      h_lane, (const uint8_t*)lowvalid, (const uint8_t*)highvalid, valid_lane,
+      (const int32_t*)descs, desc_lane, (const int32_t*)t0,
+      (const int32_t*)t_end, n, tl, th, (uint32_t*)req1, (uint32_t*)req0,
+      (uint8_t*)feas, (int32_t*)counts);
   return sbgt_launched(ev1, s);
 }

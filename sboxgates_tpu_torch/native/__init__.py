@@ -609,9 +609,11 @@ class LutEngineCaller:
 
     def __call__(self, tables, g, num_inputs, max_gates, sat_metric,
                  max_sat_metric, metric, target, mask, inbits, randomize,
-                 rng_seed, devcb):
+                 rng_seed, devcb, mux_threads=1):
         """``devcb`` is a ``(callback, pending)`` pair from
         :func:`make_eng_devcb`, kept alive by the caller for the call.
+        ``mux_threads > 1`` fans the outermost mux's branches out over C++
+        threads (the service must then be thread-safe).
         Returns (out_gid, added int32[n, 5], stats int64[8])."""
         tables, target, mask = _words(tables), _words(target), _words(mask)
         _check_rows(tables, g, target, mask)
@@ -625,7 +627,8 @@ class LutEngineCaller:
             max_sat_metric, metric, target.ctypes.data, mask.ctypes.data,
             *(b.ctypes.data for b in self._bufs), self._bufs[4].shape[0],
             inb.ctypes.data, len(inbits), int(bool(randomize)),
-            rng_seed & 0xFFFFFFFFFFFFFFFF, 1, cb, None, out_gid.ctypes.data,
+            rng_seed & 0xFFFFFFFFFFFFFFFF, int(mux_threads), cb, None,
+            out_gid.ctypes.data,
             added.ctypes.data, stats.ctypes.data,
         )
         exc, pending["exc"] = pending["exc"], None

@@ -28,17 +28,22 @@ from ..telemetry import attribution as _tattr
 #: CPU path do not count).
 launches = 0
 
+#: Kernel launches by the lane form :func:`lut5_filter_cells_lanes`.
+lane_launches = 0
+
 #: Largest gate-table height the kernel stages in shared memory.
 MAX_TABLES = 512
 
 
 def _live_words(mask: torch.Tensor):
-    """Word indices that can carry a requirement.  On the CPU the zero-mask
-    words are skipped (a host check costs nothing there); words outside the
-    mask meet neither need set, so the result is the same either way."""
+    """Word indices that can carry a requirement (in any lane of a [..., W]
+    mask).  On the CPU the zero-mask words are skipped (a host check costs
+    nothing there); words outside the mask meet neither need set, so the
+    result is the same either way."""
     if mask.is_cuda:
-        return range(mask.shape[0])
-    return [int(w) for w in torch.nonzero(mask != 0).flatten()]
+        return range(mask.shape[-1])
+    live = (mask != 0).reshape(-1, mask.shape[-1]).any(dim=0)
+    return [int(w) for w in torch.nonzero(live).flatten()]
 
 
 def cells_t(tabs: torch.Tensor) -> torch.Tensor:
@@ -54,18 +59,21 @@ def cells_t(tabs: torch.Tensor) -> torch.Tensor:
 
 
 def cell_requirements(tabs: torch.Tensor, target, mask):
-    """[k, W, N] rows -> (req1, req0) bool [2^k, N]: the cells that must map
-    to 1 / to 0.  Reduces one word at a time, so the [2^k, W, N] cell masks
-    are never held at once."""
-    k, _, n = tabs.shape
-    need1 = mask & target
-    need0 = mask & ~target
-    req1 = torch.zeros((1 << k, n), dtype=torch.bool, device=tabs.device)
+    """[k, ..., W, N] rows against ``target``/``mask`` [..., W] -> (req1,
+    req0) bool [2^k, ..., N]: the cells that must map to 1 / to 0 (the
+    leading dimensions are lanes, each with its own target and mask).
+    Reduces one word at a time, so the [2^k, ..., W, N] cell masks are
+    never held at once."""
+    k, n = tabs.shape[0], tabs.shape[-1]
+    need1 = (mask & target)[..., None]
+    need0 = (mask & ~target)[..., None]
+    req1 = torch.zeros((1 << k,) + tuple(tabs.shape[1:-2]) + (n,),
+                       dtype=torch.bool, device=tabs.device)
     req0 = torch.zeros_like(req1)
     for w in _live_words(mask):
-        cells = cells_t(tabs[:, w : w + 1, :])[:, 0, :]
-        req1 |= (cells & need1[w]) != 0
-        req0 |= (cells & need0[w]) != 0
+        cells = cells_t(tabs[..., w, :])
+        req1 |= (cells & need1[..., w, :]) != 0
+        req0 |= (cells & need0[..., w, :]) != 0
     return req1, req0
 
 
@@ -138,4 +146,64 @@ def lut5_filter_cells(tables, combos, target, mask):
     with timed as events:
         _kernels.check(fn(*args, *events), "lut5_filter_cells")
     launches += 1
+    return req1, req0
+
+
+def lut5_filter_cells_lanes_plain(tables, combos, target, mask):
+    """Plain version of the lane form: each lane through
+    :func:`lut5_filter_cells_plain`."""
+    outs = [
+        lut5_filter_cells_plain(tables[i], combos[i], target[i], mask[i])
+        for i in range(tables.shape[0])
+    ]
+    if not outs:
+        empty = torch.zeros((0, combos.shape[1]), dtype=torch.int32,
+                            device=tables.device)
+        return empty, empty.clone()
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def lut5_filter_cells_lanes(tables, combos, target, mask):
+    """The lane form of :func:`lut5_filter_cells`: ``lanes`` independent
+    filters in one launch (``csrc/lut5_filter.cu``,
+    ``sbgt_lut5_filter_lanes``).  ``tables`` int32[lanes, B, 8] (B <= 512),
+    ``combos`` int32[lanes, N, 5], ``target``/``mask`` int32[lanes, 8];
+    returns (req1, req0) int32[lanes, N], lane l equal to
+    ``lut5_filter_cells(tables[l], combos[l], target[l], mask[l])``."""
+    global lane_launches
+    for name, t in (("tables", tables), ("combos", combos),
+                    ("target", target), ("mask", mask)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"lut5_filter_cells_lanes: {name} must be "
+                             "contiguous int32")
+        if t.device != tables.device:
+            raise ValueError("lut5_filter_cells_lanes: operands on different "
+                             "devices")
+    lanes = tables.shape[0]
+    if (tables.dim() != 3 or tables.shape[2] != 8 or combos.dim() != 3
+            or combos.shape[0] != lanes or combos.shape[2] != 5
+            or target.shape != (lanes, 8) or mask.shape != (lanes, 8)):
+        raise ValueError("lut5_filter_cells_lanes: shapes must be tables "
+                         "[L, B, 8], combos [L, N, 5], target/mask [L, 8]")
+    if not 5 <= tables.shape[1] <= MAX_TABLES:
+        raise ValueError(f"tables height {tables.shape[1]} outside [5, 512]")
+    n, b = combos.shape[1], tables.shape[1]
+    timed = _tattr.launch(
+        "lut5_filter_lanes", f"{lanes}x{n}x{b}",
+        lambda: _tattr.lanes_cost(_tattr.filter_cost(n, b), lanes), tables,
+    )
+    if not tables.is_cuda:
+        with timed:
+            return lut5_filter_cells_lanes_plain(tables, combos, target, mask)
+    req1 = torch.empty((lanes, n), dtype=torch.int32, device=tables.device)
+    req0 = torch.empty_like(req1)
+    fn, args = _kernels.lib().sbgt_lut5_filter_lanes, (
+        tables.data_ptr(), b, combos.data_ptr(), n, lanes, target.data_ptr(),
+        mask.data_ptr(), req1.data_ptr(), req0.data_ptr(),
+        _kernels.stream_ptr(tables.device),
+    )
+    with timed as events:
+        _kernels.check(fn(*args, *events), "lut5_filter_cells_lanes")
+    lane_launches += 1
     return req1, req0

@@ -39,15 +39,17 @@ from ..telemetry import attribution as _tattr
 
 #: Kernel launches: ``"packed"`` by :func:`pivot_window` (K1 as the sweep
 #: runs it, one launch per window of tiles), ``"pre"`` by
-#: :func:`pivot_pre_window` (K2 as the sweep runs it), and ``"tile"`` /
-#: ``"pre_tile"`` by the single-tile :func:`pivot_constraints` /
-#: :func:`pivot_constraints_pre`.
-launches = {"packed": 0, "pre": 0, "tile": 0, "pre_tile": 0}
+#: :func:`pivot_pre_window` (K2 as the sweep runs it), ``"lanes"`` by K1's
+#: lane form :func:`pivot_window_lanes` (one launch per window of every
+#: lane), and ``"tile"`` / ``"pre_tile"`` by the single-tile
+#: :func:`pivot_constraints` / :func:`pivot_constraints_pre`.
+launches = {"packed": 0, "pre": 0, "tile": 0, "pre_tile": 0, "lanes": 0}
 
 #: Tiles swept by the window launches (a window of n tiles adds n to its
-#: backend's count), and tiles of either that the pivot sweep handed to its
-#: decomposition solve (``"solved"``).
-tiles = {"packed": 0, "pre": 0, "solved": 0}
+#: backend's count; a lane-form launch adds the tiles its lanes sweep, not
+#: the inert slots of lanes cut at their t_end), and tiles of any that the
+#: pivot sweep handed to its decomposition solve (``"solved"``).
+tiles = {"packed": 0, "pre": 0, "lanes": 0, "solved": 0}
 
 # Packed-cell bit position for (pivot polarity s, low cell j, high cell c2):
 # (j << 3) | (s << 2) | c2 — the 32-cell key order shared with the 5-LUT
@@ -211,7 +213,8 @@ def _window_plain(tile_words, lowvalid, highvalid, descs, t0, n, t_end, tl,
                   th, out, dev):
     """The window kernels' plain body: ``tile_words(m, lo0, hi0)`` gives one
     tile's (req1, req0); validity, the conflict test and the counts follow
-    the kernels' contract (:func:`pivot_window`)."""
+    the kernels' contract (:func:`pivot_window`).  ``descs`` may be the
+    descriptor rows as host lists."""
     if out is None:
         out = window_buffers(n, tl, th, dev)
     req1, req0, feas = (b[:n] for b in out)
@@ -220,11 +223,14 @@ def _window_plain(tile_words, lowvalid, highvalid, descs, t0, n, t_end, tl,
     feas.fill_(False)
     rows_l = torch.arange(tl, device=dev)
     rows_h = torch.arange(th, device=dev)
+    if isinstance(descs, torch.Tensor):
+        descs = descs[t0 : max(t0, min(t0 + n, t_end))].tolist()
+        t_end, t0 = t_end - t0, 0
     for z in range(n):
         t = t0 + z
         if t >= t_end:
             continue
-        m, lo0, lo_end, hi0, hi_end = (int(x) for x in descs[t].tolist())
+        m, lo0, lo_end, hi0, hi_end = (int(x) for x in descs[t])
         r1, r0 = tile_words(m, lo0, hi0)
         lv = (lo0 + rows_l < lo_end) & lowvalid[lo0 : lo0 + tl]
         hv = (hi0 + rows_h < hi_end) & highvalid[hi0 : hi0 + th]
@@ -385,4 +391,113 @@ def pivot_pre_window(tables, l1, l0, hc, lowvalid, highvalid, descs, t0, n,
         _kernels.check(fn(*args, *events), "pivot_pre_window")
     launches["pre"] += 1
     tiles["pre"] += n
+    return req1, req0, feas, counts
+
+
+def window_lanes_buffers(lanes, n, tl, th, device):
+    """(req1, req0, feas) buffers for lane windows of up to ``n`` tiles:
+    flat [lanes * n, tl, th], so a window of fewer tiles is a dense view of
+    their head (:func:`_lane_views`)."""
+    return window_buffers(lanes * n, tl, th, device)
+
+
+def _lane_views(out, lanes, n):
+    """The dense [lanes, n, tl, th] views of flat lane-window buffers."""
+    if out[0].shape[0] < lanes * n:
+        raise ValueError("lane window buffers do not fit the window")
+    return tuple(b[: lanes * n].view((lanes, n) + tuple(b.shape[1:]))
+                 for b in out)
+
+
+def pivot_window_lanes_plain(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
+                             t0, n, t_end, tl, th, out=None):
+    """Plain version of the lane form: each lane through
+    :func:`pivot_window_plain`, a lane with ``t0 >= t_end`` inert."""
+    lanes = tables.shape[0]
+    dev = lc1.device
+    if out is None:
+        out = window_lanes_buffers(lanes, n, tl, th, dev)
+    req1, req0, feas = _lane_views(out, lanes, n)
+    rows = descs.tolist()
+    counts = []
+    for i in range(lanes):
+        _, _, _, c = pivot_window_plain(
+            tables[i], lc1[i], lc0[i], hc[i], lowvalid[i], highvalid[i],
+            rows[i], int(t0[i]), n, int(t_end[i]), tl, th,
+            out=(req1[i], req0[i], feas[i]),
+        )
+        counts.append(c)
+    return req1, req0, feas, torch.stack(counts) if counts else torch.zeros(
+        (0, n), dtype=torch.int32, device=dev)
+
+
+def pivot_window_lanes(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0,
+                       n, t_end, tl, th, out=None):
+    """K1's lane form: one launch sweeps a window of ``n`` tiles of every
+    lane (``csrc/pivot_tile.cu``, ``sbgt_pivot_window_lanes``).
+
+    Lane l is :func:`pivot_window` over its own operands — ``tables``
+    int32[L, B, 8], ``lc1``/``lc0``/``hc`` int32[L, 4, P, 8],
+    ``lowvalid``/``highvalid`` bool[L, P], ``descs`` int32[L, T, 5] — for
+    tiles ``[t0[l], t0[l] + n)`` cut at ``t_end[l]`` (a lane with ``t0 >=
+    t_end`` does no work).  ``t0`` and ``t_end`` are the lanes' host
+    ints: the wrapper copies them to the card behind the stream, and counts
+    and charges the tiles the lanes sweep (a lane's slots past its
+    ``t_end`` are written inert, with no work).  Returns (req1, req0) int32[L, n, tl, th], feas
+    bool[L, n, tl, th] and counts int32[L, n]; ``out`` may hold
+    :func:`window_lanes_buffers` of at least ``lanes * n`` tiles."""
+    dev = lc1.device
+    lanes = tables.shape[0]
+    for name, t in (("tables", tables), ("lc1", lc1), ("lc0", lc0), ("hc", hc)):
+        if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 on {dev}")
+        if t.shape[-1] != 8 or t.shape[0] != lanes:
+            raise ValueError(f"{name} must be [lanes, ..., 8]")
+    if lc1.shape != lc0.shape or lc1.shape[1] != 4 or hc.shape[1] != 4:
+        raise ValueError("lc1/lc0/hc must be [lanes, 4, rows, 8]")
+    for name, t in (("lowvalid", lowvalid), ("highvalid", highvalid)):
+        if (t.dtype != torch.bool or t.device != dev or not t.is_contiguous()
+                or t.shape != (lanes, lowvalid.shape[1])):
+            raise ValueError(f"{name} must be a contiguous bool [lanes, P] on "
+                             f"{dev}")
+    if (descs.dtype != torch.int32 or descs.device != dev
+            or not descs.is_contiguous() or descs.dim() != 3
+            or descs.shape[0] != lanes or descs.shape[2] != 5):
+        raise ValueError("descs must be a contiguous int32[lanes, T, 5]")
+    t0, t_end = [int(x) for x in t0], [int(x) for x in t_end]
+    if len(t0) != lanes or len(t_end) != lanes:
+        raise ValueError("t0 and t_end must hold one tile index per lane")
+    if min(t0 + [0]) < 0 or max(t_end + [0]) > descs.shape[1]:
+        raise ValueError("the lanes' descriptors are out of range")
+    swept = sum(max(0, min(n, e - s)) for s, e in zip(t0, t_end))
+    if out is None:
+        out = window_lanes_buffers(lanes, n, tl, th, dev)
+    req1, req0, feas = _lane_views(out, lanes, n)
+    if req1.shape != (lanes, n, tl, th) or feas.dtype != torch.bool:
+        raise ValueError("lane window buffers do not fit the window")
+    timed = _tattr.launch(
+        "pivot_window_lanes", f"{swept}of{lanes}x{n}x{tl}x{th}",
+        lambda: _tattr.window_lanes_cost(swept, lanes * n, tl, th), lc1,
+    )
+    if not lc1.is_cuda:
+        with timed:
+            return pivot_window_lanes_plain(
+                tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n,
+                t_end, tl, th, out=out,
+            )
+    counts = torch.empty((lanes, n), dtype=torch.int32, device=dev)
+    bounds = _kernels.upload([t0, t_end], torch.int32, dev)
+    fn, args = _kernels.lib().sbgt_pivot_window_lanes, (
+        tables.data_ptr(), tables.stride(0), lc1.data_ptr(), lc0.data_ptr(),
+        lc1.stride(1), lc1.stride(0), hc.data_ptr(), hc.stride(1),
+        hc.stride(0), lowvalid.data_ptr(), highvalid.data_ptr(),
+        lowvalid.stride(0), descs.data_ptr(), descs.stride(0),
+        bounds[0].data_ptr(), bounds[1].data_ptr(), lanes, n, tl, th,
+        req1.data_ptr(), req0.data_ptr(), feas.data_ptr(), counts.data_ptr(),
+        _kernels.stream_ptr(dev),
+    )
+    with timed as events:
+        _kernels.check(fn(*args, *events), "pivot_window_lanes")
+    launches["lanes"] += 1
+    tiles["lanes"] += swept
     return req1, req0, feas, counts

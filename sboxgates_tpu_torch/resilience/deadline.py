@@ -151,6 +151,7 @@ def dispatch_with_retry(
     label: str = "",
     on_retry: Optional[Callable[[], None]] = None,
     site: str = "dispatch.sweep",
+    lanes=(),
 ):
     """One guarded device-sweep resolve: deadline, retry, backoff.
 
@@ -162,7 +163,9 @@ def dispatch_with_retry(
     ``on_retry`` (re-issue the dispatch) and tries again.  After
     ``cfg.retries`` retries the last :class:`DispatchTimeout` propagates,
     after a ``deadline_exhausted`` flight-recorder dump.
-    A disabled config (or None) calls inline: no thread.
+    A disabled config (or None) calls inline: no thread.  ``lanes`` names
+    the jobs riding a merged wave's window (:func:`wave_dispatch_with_retry`):
+    the breach and the timeout's message carry them.
     """
 
     def attempt():
@@ -183,15 +186,18 @@ def dispatch_with_retry(
                     raise
         except DispatchTimeout as e:
             _bump(stats, "deadline_breaches")
+            extra = {"lanes": list(lanes)} if lanes else {}
             _ttrace.instant("deadline.breach", "deadline", label=label,
-                            attempt=k)
+                            attempt=k, **extra)
+            if lanes:
+                e = DispatchTimeout(f"{e} (lanes: {', '.join(lanes)})")
             if k == cfg.retries:
                 logger.warning(
                     "%s; %d retr%s exhausted", e, cfg.retries,
                     "y" if cfg.retries == 1 else "ies",
                 )
                 _flight_exhausted(stats, label, cfg.retries + 1)
-                raise
+                raise e
             _bump(stats, "dispatch_retries")
             logger.warning("%s; retry %d/%d in %.2fs", e, k + 1, cfg.retries,
                            delay)
@@ -200,3 +206,16 @@ def dispatch_with_retry(
             if on_retry is not None:
                 on_retry()
     raise AssertionError("unreachable")
+
+
+def wave_dispatch_with_retry(fn: Callable, cfg: Optional[DeadlineConfig],
+                             stats=None, label: str = "", lanes=(),
+                             on_retry: Optional[Callable[[], None]] = None):
+    """One guarded window for a WHOLE merged fleet wave call (one call
+    carries every lane's sweep, so it cannot be guarded lane by lane):
+    :func:`dispatch_with_retry`'s schedule with the breach attributed to
+    every lane riding the window (``lanes``, named in the timeout and the
+    ``deadline.breach`` instant).  One ``deadline_breaches`` per breached
+    window."""
+    return dispatch_with_retry(fn, cfg, stats=stats, label=label,
+                               on_retry=on_retry, lanes=lanes)

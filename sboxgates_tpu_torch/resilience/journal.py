@@ -66,6 +66,9 @@ class SearchJournal:
         self.directory = directory
         self.records = records
         self.readonly = readonly
+        # True when this handle continued an existing journal: per-job
+        # journals take their fresh-or-resume choice from the run's.
+        self.resumed = False
         self._unsnapshotted = 0
 
     # -- construction ------------------------------------------------------
@@ -94,6 +97,7 @@ class SearchJournal:
                 f"(missing run_start record)"
             )
         j = cls(directory, records, readonly=readonly)
+        j.resumed = True
         if not readonly:
             # Rewrite the JSONL as exactly the parsed records: appending
             # onto a torn, newline-less tail would weld the next record to
@@ -110,6 +114,29 @@ class SearchJournal:
                     "with the parsed records", directory, e,
                 )
         return j
+
+    @classmethod
+    def for_job(cls, root: str, job_id: str, config: Dict[str, Any], *,
+                resume: bool, readonly: bool = False) -> "SearchJournal":
+        """One job's journal under ``root/job_id/`` (the multi-box
+        one-output driver's per-box journals).  ``resume=False`` starts it
+        fresh; ``resume=True`` continues it, or starts it fresh when the job
+        never journaled before the kill.  A ``readonly`` view replays and
+        never writes (an empty handle when there is nothing to replay)."""
+        d = os.path.join(root, job_id)
+        if readonly:
+            if resume:
+                try:
+                    return cls.resume(d, readonly=True)
+                except JournalError:
+                    pass
+            return cls(d, [], readonly=True)
+        if resume:
+            try:
+                return cls.resume(d)
+            except JournalError:
+                pass
+        return cls.start(d, config)
 
     @property
     def writable(self) -> bool:

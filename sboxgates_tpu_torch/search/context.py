@@ -16,6 +16,7 @@ circuit in both.
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -34,6 +35,7 @@ from ..telemetry import flight as _tflight
 from ..telemetry import metrics as _tmetrics
 from ..telemetry import trace as _ttrace
 from ..utils.profile import PhaseProfiler
+from . import warmup as _warmup
 
 # Gate-count buckets: live tables are zero-padded up to the next bucket.  The
 # pair sweep's index space is the bucket's pair grid, so the bucket shapes
@@ -126,6 +128,19 @@ class Options:
     # --status-port: the CLI serves /status on this port (0: ephemeral).
     # Observation only.
     status_port: Optional[int] = None
+    # Concurrent exploration of the step-5 mux's select bits (threads whose
+    # sweeps rendezvous, search/batched.py): None = on when the device is
+    # not the CPU, the JAX package's rule for its backend; --serial-mux
+    # forces it off.  The branches draw their seeds from the context's
+    # PRNG in one block, so a randomized search builds other circuits with
+    # it on than off (each deterministic).
+    parallel_mux: Optional[bool] = None
+    # -i restarts as one concurrent batch (--batch-iterations).
+    batch_restarts: bool = False
+    # Fleet execution of job waves (--fleet, search/fleet.py).
+    fleet: bool = False
+    # Jobs per fleet wave; the per-job seeds are drawn one wave at a time.
+    fleet_max_wave: int = 256
 
 
 @dataclass(frozen=True)
@@ -268,6 +283,9 @@ class SearchContext:
         self._seed_buf = (np.empty(0, dtype=np.int64), 0)
         self._pair_combo_cache = {}
         self._table_cache: "OrderedDict" = OrderedDict()
+        # Shared by every thread's view of the context (mux branches,
+        # restarts, fleet jobs).
+        self._table_lock = threading.Lock()
         self._binom = None
         self._binom_wide = None
         self._lut5_tabs = None
@@ -300,6 +318,17 @@ class SearchContext:
         # go straight to the host chunk stream instead of re-probing a
         # known-dead device for budget * (retries + 1) seconds each.
         self.device_degraded = False
+        # Rendezvous of concurrent mux-branch / restart threads (None: plain
+        # dispatch): the JAX rule, on unless the device is the CPU.
+        self.rdv = None
+        want_mux = opt.parallel_mux
+        if want_mux is None:
+            want_mux = self.device.type != "cpu"
+        if want_mux:
+            from .batched import Rendezvous  # deferred: import cycle
+
+            self.rdv = Rendezvous(1, timer=self.launch_timer)
+        self._engine_mux_threads = None
 
     # -- helpers ----------------------------------------------------------
 
@@ -394,6 +423,73 @@ class SearchContext:
                 total[k] = total.get(k, 0.0) + v
         return total
 
+    def kernel_call(self, name: str, statics: dict, args: tuple, g=None):
+        """One registry sweep (:mod:`.warmup`) from this thread:
+        :meth:`dispatch` of ``KERNELS[name]`` with ``statics`` on ``args``."""
+        fn = _warmup.kernel(name, statics)
+        return self.dispatch(name, lambda: fn(*args), g=g)
+
+    def _dispatch(self, name: str, statics: dict, args: tuple, g=None):
+        """A fused node-head sweep: with a rendezvous attached and other
+        live threads in its pool, it merges with their same-shaped sweeps
+        into one lane-form call; otherwise :meth:`kernel_call`.  Reading
+        ``live`` unlocked is safe: it exceeds 1 only while helper threads
+        this thread spawned are attached."""
+        if self.rdv is not None and self.rdv.live > 1:
+            return self.rdv.submit(
+                _warmup.warm_key(name, statics, args), name, statics, args,
+                g=g,
+            )
+        return self.kernel_call(name, statics, args, g=g)
+
+    def _merge_streams(self) -> bool:
+        """True when a streaming sweep (pivot, 5-LUT, feasibility streams)
+        should rendezvous with the other live threads: only under the
+        fleet's rendezvous (``merges_streams``), and never under a
+        hung-dispatch deadline (an abandoned attempt's entry would stall the
+        pool) or once the device breaker has tripped, as in the JAX
+        package."""
+        return (
+            self.rdv is not None
+            and getattr(self.rdv, "merges_streams", False)
+            and self.rdv.live > 1
+            and not self.deadline_cfg.enabled
+            and not self.device_degraded
+        )
+
+    def stream_dispatch(self, name: str, statics: dict, args: tuple, g=None):
+        """Registry dispatch of a streaming sweep: merged through the fleet
+        rendezvous when :meth:`_merge_streams` allows (a lane's verdict is
+        the single-lane sweep's), else :meth:`kernel_call`."""
+        if self._merge_streams():
+            return self.rdv.submit(
+                _warmup.warm_key(name, statics, args), name, statics, args,
+                g=g,
+            )
+        return self.kernel_call(name, statics, args, g=g)
+
+    def observe_job(self, name: str, t0: float, t1: float, found: bool) -> None:
+        """Per-job telemetry: one ``job`` span and the ``job_seconds`` /
+        ``job_time_to_first_hit_s`` histograms (the latter only for a job
+        that found a circuit)."""
+        dt = t1 - t0
+        self.stats.observe("job_seconds", dt)
+        if found:
+            self.stats.observe("job_time_to_first_hit_s", dt)
+        _ttrace.tracer().record(f"job[{name}]", "job", t0, t1, {"found": found})
+
+    def engine_mux_threads(self) -> int:
+        """Threads of the native LUT engine's outermost mux fan-out
+        (``SBG_ENGINE_MUX_THREADS``, default 1 = serial).  Above 1 the
+        branches' serviced device work overlaps, and the randomized stream
+        differs (still seed-deterministic); without randomization the
+        results are the same for every value, as in the JAX package."""
+        if self._engine_mux_threads is None:
+            self._engine_mux_threads = max(1, int(os.environ.get(
+                "SBG_ENGINE_MUX_THREADS", "1"
+            ) or "1"))
+        return self._engine_mux_threads
+
     def close_telemetry(self) -> int:
         """Reads the launch times never synced by the search (a window
         swept past a hit), once the stream has finished them: polls, never
@@ -456,17 +552,41 @@ class SearchContext:
         b = bucket_size(g)
         live = np.ascontiguousarray(st.live_tables())
         key = (b, hashlib.blake2b(live.tobytes(), digest_size=16).digest())
-        hit = self._table_cache.get(key)
-        if hit is not None:
-            self._table_cache.move_to_end(key)
-            return hit
+        with self._table_lock:
+            hit = self._table_cache.get(key)
+            if hit is not None:
+                self._table_cache.move_to_end(key)
+                return hit
         padded = np.zeros((b, 8), dtype=np.uint32)
         padded[:g] = live
         placed = self.words(padded)
-        self._table_cache[key] = placed
-        while len(self._table_cache) > self.TABLE_CACHE_SLOTS:
-            self._table_cache.popitem(last=False)
+        with self._table_lock:
+            # Two threads may place the same key: both hold the same words.
+            self._table_cache[key] = placed
+            while len(self._table_cache) > self.TABLE_CACHE_SLOTS:
+                self._table_cache.popitem(last=False)
         return placed
+
+    def fleet_device_tables(self, states, done=None, lanes: Optional[int] = None,
+                            bucket: Optional[int] = None) -> torch.Tensor:
+        """Stacked form of :meth:`device_tables`: the jobs' padded live
+        tables as one int32 [lanes, bucket, 8] tensor (``lanes`` defaults to
+        the fleet's jobs bucket); ``done`` jobs and pad lanes past the last
+        job are zero rows."""
+        from .fleet import fleet_bucket
+
+        n = len(states)
+        done = [False] * n if done is None else list(done)
+        if bucket is None:
+            bucket = max(bucket_size(st.num_gates) for st in states)
+        if lanes is None:
+            lanes = fleet_bucket(n)
+        stacked = np.zeros((lanes, bucket, 8), dtype=np.uint32)
+        for i, (st, d) in enumerate(zip(states, done)):
+            if not d:
+                live = np.ascontiguousarray(st.live_tables())
+                stacked[i, : live.shape[0]] = live
+        return self.words(stacked)
 
     def _pair_combos_np(self, bucket: int) -> np.ndarray:
         i, j = np.triu_indices(bucket, k=1)
@@ -553,9 +673,10 @@ class SearchContext:
         if stop is not None:
             total = min(int(stop), total)
         verdict, feas, r1, r0 = self.guarded_dispatch(
-            lambda: self.dispatch("feasible_stream", lambda: sweeps.feasible_stream(
-                *base_args, start, total, k=k, chunk=chunk
-            ), g=st.num_gates),
+            lambda: self.stream_dispatch(
+                "feasible_stream", dict(k=k, chunk=chunk),
+                (*base_args, start, total), g=st.num_gates,
+            ),
             f"feasible_stream k={k}",
         )
         found, cstart, examined = (int(x) for x in verdict)
@@ -604,13 +725,20 @@ class SearchContext:
         """True when the whole recursion from this node runs in a native
         engine.  Gate mode completes natively; the
         LUT engine hands its device-work nodes to the service of
-        kwan._lut_engine_service and resumes in place.  Verbose LUT runs
+        kwan._lut_engine_service and resumes in place — except while
+        mux-concurrency threads are attached (``self.rdv``): a LUT node with
+        device work then stays on the Python recursion, whose mux branches
+        overlap their sweeps, as in the JAX package.  Verbose LUT runs
         stay on the Python recursion: the reference's find lines
         ("[   0] Found 5LUT: ...", lut.c:219-222) are printed by the
         Python decode paths the engine bypasses."""
         if self.opt.lut_graph and self.opt.verbosity >= 1:
             return False
-        return self.uses_native_step(st)
+        if not self.uses_native_step(st):
+            return False
+        if self.node_host_only(st):
+            return True
+        return self.opt.lut_graph and self.rdv is None
 
     def gate_engine_caller(self):
         if self._gate_engine_caller is None:
@@ -696,9 +824,9 @@ class SearchContext:
             self.triple_table, self.next_seed(),
         )
         with self.prof.phase("gate_step"):
-            v = self.dispatch("gate_step_stream", lambda: sweeps.gate_step_stream(
-                *args, chunk3=chunk3, has_not=has_not, has_triple=has_triple,
-            ), g=g)
+            v = self._dispatch("gate_step_stream", dict(
+                chunk3=chunk3, has_not=has_not, has_triple=has_triple,
+            ), args, g=g)
         return self._count_gate_step(g, has_triple, v)
 
     def _lut_head_sizes(self, g: int):
@@ -753,10 +881,10 @@ class SearchContext:
             total3, total5, self.pair_table, jw, jm, self.next_seed(),
         )
         with self.prof.phase("lut_step"):
-            v = self.dispatch("lut_step_stream", lambda: sweeps.lut_step_stream(
-                *args, chunk3=chunk3, chunk5=chunk5, has5=has5,
+            v = self._dispatch("lut_step_stream", dict(
+                chunk3=chunk3, chunk5=chunk5, has5=has5,
                 solve_rows=LUT5_HEAD_SOLVE_ROWS,
-            ), g=g)
+            ), args, g=g)
         return self._count_lut_step(g, v)
 
     def _lut7_step_native(self, st: State, target, mask, inbits) -> np.ndarray:
@@ -823,9 +951,9 @@ class SearchContext:
             total7, jidx, jpp, self.next_seed(),
         )
         with self.prof.phase("lut7_step"):
-            v = self.dispatch("lut7_step_stream", lambda: sweeps.lut7_step_stream(
-                *args, chunk7=chunk7, solve7=LUT7_HEAD_SOLVE_ROWS,
-            ), g=g)
+            v = self._dispatch("lut7_step_stream", dict(
+                chunk7=chunk7, solve7=LUT7_HEAD_SOLVE_ROWS,
+            ), args, g=g)
         self.stats.inc("lut7_candidates", int(v[4]))
         self.stats.inc("lut7_solved", int(v[5]))
         return v

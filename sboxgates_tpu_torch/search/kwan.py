@@ -5,8 +5,11 @@ branchy control flow stays in Python while every candidate scan runs as a
 device sweep or, for states the placement policy sends to the host, on the
 native runtime.  States are value-copied around the step-5 multiplexer
 recursion exactly as in the reference — the copy semantics are load-bearing
-for backtracking.  The mux branches run serially and are folded in bit
-order.
+for backtracking.  The mux branches are folded in bit order; with a
+rendezvous attached (``Options.parallel_mux``, on for a device other than
+the CPU) they run as concurrent threads whose sweeps merge
+(:func:`.batched.run_mux_jobs`), each with its own seed, as in the JAX
+package.
 
 With ``Options.native`` the whole recursion from a node runs in the
 native engine (csrc ``sbg_gate_engine`` / ``sbg_lut_engine``); Python only
@@ -130,7 +133,9 @@ def _create_circuit(
     # Step 5: multiplex over an unused input bit and recurse on the two
     # Karnaugh-map halves (sboxgates.c:438-607).  Only the first six used
     # bits are tracked (the reference truncates identically,
-    # sboxgates.c:443-449).
+    # sboxgates.c:443-449).  The branches are independent state copies; with
+    # a rendezvous attached they run as concurrent threads (the fold below
+    # stays in bit order).
     tracked = inbits[:6]
     bit_order = [b for b in range(st.num_inputs) if b not in tracked]
     if not bit_order:
@@ -138,10 +143,30 @@ def _create_circuit(
     if opt.randomize:
         ctx.rng.shuffle(bit_order)
 
+    if (
+        ctx.rdv is not None
+        # A context view that must keep the standalone draw order (the JAX
+        # package's merged serve-wave views) sets allow_mux_threads=False.
+        and getattr(ctx, "allow_mux_threads", True)
+        and len(bit_order) > 1
+        and not ctx.node_host_only(st)
+    ):
+        from .batched import run_mux_jobs
+
+        def job(bit):
+            return lambda cctx: _mux_try_bit(
+                cctx, st, target, mask, bit, tracked
+            )
+
+        outcomes = run_mux_jobs(ctx, [job(b) for b in bit_order])
+    else:
+        outcomes = [
+            _mux_try_bit(ctx, st, target, mask, b, tracked) for b in bit_order
+        ]
+
     best: State = None
     best_out = NO_GATE
-    for bit in bit_order:
-        outcome = _mux_try_bit(ctx, st, target, mask, bit, tracked)
+    for outcome in outcomes:
         if outcome is None:
             continue
         nst, nst_out = outcome
@@ -198,24 +223,30 @@ class _EngineView:
         return self._tables
 
 
-def _lut_engine_service(ctx: SearchContext):
+def _lut_engine_service(ctx: SearchContext, threaded: bool = False):
     """The LUT engine's device-work service (the Python half of csrc's
     sbg_eng_devcb contract): each request runs the search driver the
     Python recursion would run at that node, against ``ctx``'s seeds and
-    counters, while the engine waits in the callback."""
+    counters, while the engine waits in the callback.
+
+    ``threaded`` (the engine fans its outermost mux over threads,
+    :meth:`SearchContext.engine_mux_threads`): requests may arrive
+    concurrently, so each runs against its own context view seeded from the
+    engine branch stream's per-call draw ``rng`` (deterministic whatever
+    the thread timing) and folds its counters into ``ctx``."""
     from . import lut as lutmod
 
-    def service(kind, tables, g, target, mask, inbits, arg0, rng, slot):
+    def run(cctx, kind, st, target, mask, inbits, arg0):
         fault_point("native.devcb")
-        st = _EngineView(tables, g)
         if kind == 1:  # pivot-sized space: the full 5-LUT search
-            with ctx.prof.phase("lut5"):
-                res = lutmod.lut5_search(ctx, st, target, mask, inbits)
+            with cctx.prof.phase("lut5"):
+                res = lutmod.lut5_search(cctx, st, target, mask, inbits)
         elif kind == 2:  # head-solver overflow: resume from chunk arg0
-            res = lutmod.lut5_resume_overflow(ctx, st, target, mask, inbits, arg0)
+            res = lutmod.lut5_resume_overflow(cctx, st, target, mask, inbits,
+                                              arg0)
         elif kind == 3:  # staged 7-LUT
-            with ctx.prof.phase("lut7"):
-                res = lutmod.lut7_search(ctx, st, target, mask, inbits)
+            with cctx.prof.phase("lut7"):
+                res = lutmod.lut7_search(cctx, st, target, mask, inbits)
             if res is None:
                 return None
             return (
@@ -227,6 +258,18 @@ def _lut_engine_service(ctx: SearchContext):
         if res is None:
             return None
         return (res["func_outer"], res["func_inner"], *res["gates"])
+
+    def service(kind, tables, g, target, mask, inbits, arg0, rng, slot):
+        st = _EngineView(tables, g)
+        if not threaded:
+            return run(ctx, kind, st, target, mask, inbits, arg0)
+        from .batched import Rendezvous, RestartContext
+
+        cctx = RestartContext(ctx, rng, Rendezvous(1))
+        try:
+            return run(cctx, kind, st, target, mask, inbits, arg0)
+        finally:
+            cctx.merge_stats_into(ctx)
 
     return service
 
@@ -285,13 +328,17 @@ def _native_lut_engine_search(
     the node."""
     from .. import native
 
+    mux_threads = ctx.engine_mux_threads()
     if ctx.lut_engine_devcb is None:
-        ctx.lut_engine_devcb = native.make_eng_devcb(_lut_engine_service(ctx))
+        ctx.lut_engine_devcb = native.make_eng_devcb(
+            _lut_engine_service(ctx, threaded=True) if mux_threads > 1
+            else _lut_engine_service(ctx)
+        )
     stats_snapshot = dict(ctx.stats)
     with ctx.prof.phase("lut_engine_native"):
         out_gid, added, stats = ctx.lut_engine_caller()(
             *_engine_args(ctx, st, target, mask, inbits),
-            devcb=ctx.lut_engine_devcb,
+            devcb=ctx.lut_engine_devcb, mux_threads=mux_threads,
         )
     if added is None:  # bailed: the device-work service failed
         ctx.stats.restore(stats_snapshot)

@@ -100,8 +100,9 @@ def lut3_search(ctx: SearchContext, st: State, target, mask, inbits) -> int:
     args, total, chunk = ctx.stream_args(st, target, mask, [], 3)
     seed = ctx.next_seed()
     v = ctx.guarded_dispatch(
-        lambda: ctx.dispatch("lut3_stream", lambda: sweeps.lut3_stream(
-            *args, 0, total, seed, chunk=chunk), g=g),
+        lambda: ctx.stream_dispatch(
+            "lut3_stream", dict(chunk=chunk), (*args, 0, total, seed), g=g
+        ),
         "lut3.stream",
     )
     ctx.stats.inc("lut3_candidates", int(v[4]))
@@ -158,9 +159,10 @@ def _solve_lut5_rows(
         ctx.stats.inc("lut5_solved", hi - lo)
         seed = ctx.next_seed()
         v = ctx.host_sync_deadline(
-            lambda a=p1, b=p0: ctx.dispatch("lut5_solve", lambda: sweeps.lut5_solve(
-                ctx.words(a), ctx.words(b), jw, jm, seed
-            ), g=st.num_gates),
+            lambda a=p1, b=p0: ctx.stream_dispatch(
+                "lut5_solve", {}, (ctx.words(a), ctx.words(b), jw, jm, seed),
+                g=st.num_gates,
+            ),
             "lut5.solve",
         )
         if not v[0]:
@@ -194,6 +196,28 @@ def pivot_tile_shape(g: int) -> Tuple[int, int]:
     return 512, 512
 
 
+def pivot_host_operands(g: int, tl: int, th: int, excl):
+    """Host operands of one node's pivot sweep: (lows, highs, descs,
+    lows_p, highs_p, lowvalid, highvalid, t_real).  The pair arrays are
+    padded by one tile so every tile slice is in range (padded rows
+    invalid).  One builder for :class:`PivotOperands` and the stacked
+    ``search.fleet.fleet_pivot_step``."""
+    lows, highs, _ = sweeps.pivot_pair_grids(g)
+    descs = sweeps.pivot_tile_descs(g, tl, th, excl)
+    p2 = lows.shape[0]
+    p2pad = p2 + max(tl, th)
+    lowvalid = np.zeros(p2pad, bool)
+    highvalid = np.zeros(p2pad, bool)
+    lowvalid[:p2] = ~np.isin(lows, excl).any(1) if excl else True
+    highvalid[:p2] = ~np.isin(highs, excl).any(1) if excl else True
+    lows_p = np.zeros((p2pad, 2), np.int64)
+    lows_p[:p2] = lows
+    highs_p = np.zeros((p2pad, 2), np.int64)
+    highs_p[:p2] = highs
+    return (lows, highs, descs, lows_p, highs_p, lowvalid, highvalid,
+            descs.shape[0])
+
+
 class PivotOperands:
     """Host + device operands of the pivot 5-LUT sweep: pair grids, tile
     descriptors (host), validity masks and per-pair cell masks (device).
@@ -206,10 +230,9 @@ class PivotOperands:
     def __init__(self, g, tl, th, excl, tables, target, mask, device,
                  backend="packed", dispatch=None):
         self.g, self.tl, self.th = g, tl, th
-        lows, highs, _ = sweeps.pivot_pair_grids(g)
-        descs = sweeps.pivot_tile_descs(g, tl, th, excl)
+        (lows, highs, descs, lows_p, highs_p, lowvalid, highvalid,
+         self.t_real) = pivot_host_operands(g, tl, th, excl)
         self.lows, self.highs, self.descs = lows, highs, descs
-        self.t_real = descs.shape[0]
         if self.t_real == 0:
             return
         tile_sizes = (
@@ -217,16 +240,6 @@ class PivotOperands:
             * (descs[:, 4] - descs[:, 3]).astype(np.int64)
         )
         self.size_cum = np.concatenate([[0], np.cumsum(tile_sizes)])
-        p2 = lows.shape[0]
-        p2pad = p2 + max(tl, th)
-        lowvalid = np.zeros(p2pad, bool)
-        highvalid = np.zeros(p2pad, bool)
-        lowvalid[:p2] = ~np.isin(lows, excl).any(1) if excl else True
-        highvalid[:p2] = ~np.isin(highs, excl).any(1) if excl else True
-        lows_p = np.zeros((p2pad, 2), np.int64)
-        lows_p[:p2] = lows
-        highs_p = np.zeros((p2pad, 2), np.int64)
-        highs_p[:p2] = highs
         self.tables = tables
         put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
         cells = (
@@ -285,10 +298,13 @@ def _lut5_search_pivot(
 
     def redrive_tile(t_over: int) -> Optional[dict]:
         """Overflow fallback: one tile's full feasibility data, every
-        feasible tuple solved (no in-kernel row cap)."""
-        feas, r1, r0 = ctx.dispatch("lut5_pivot_tile", lambda: sweeps.lut5_pivot_tile(
-            *args, t_over, tl=tl, th=th, backend=backend
-        ), g=g)
+        feasible tuple solved (no in-kernel row cap).  Merged like the
+        stream itself, so concurrent jobs' re-drives run as one launch of
+        K1's lane form."""
+        feas, r1, r0 = ctx.stream_dispatch(
+            "lut5_pivot_tile", dict(tl=tl, th=th, backend=backend),
+            (*args, t_over), g=g,
+        )
         rows = np.nonzero(feas.cpu().numpy())[0]
         ctx.launch_timer.settle()
         if not rows.size:
@@ -323,11 +339,11 @@ def _lut5_search_pivot(
             # many windows it launches: the JAX package's one resolve.
             seed = ctx.next_seed()
             v = ctx.guarded_dispatch(
-                lambda s=start_t, hi=seg_hi: ctx.dispatch(
-                    "lut5_pivot_stream", lambda: sweeps.lut5_pivot_stream(
-                        *args, s, hi, jw, jm, seed, tl=tl, th=th,
-                        backend=backend,
-                    ), g=g),
+                lambda s=start_t, hi=seg_hi: ctx.stream_dispatch(
+                    "lut5_pivot_stream",
+                    dict(tl=tl, th=th, backend=backend),
+                    (*args, s, hi, jw, jm, seed), g=g,
+                ),
                 "lut5.pivot",
             )
             if ordered:
@@ -412,10 +428,10 @@ def _lut5_stream_loop(ctx, st, target, mask, inbits, start) -> Optional[dict]:
         while start < seg_hi:
             seed = ctx.next_seed()
             v = ctx.guarded_dispatch(
-                lambda s=start, hi=seg_hi: ctx.dispatch(
-                    "lut5_stream", lambda: sweeps.lut5_stream(
-                        *args, s, hi, jw, jm, seed, chunk=chunk
-                    ), g=g),
+                lambda s=start, hi=seg_hi: ctx.stream_dispatch(
+                    "lut5_stream", dict(chunk=chunk),
+                    (*args, s, hi, jw, jm, seed), g=g,
+                ),
                 "lut5.stream",
             )
             if ordered:
@@ -888,9 +904,9 @@ def _lut7_solve_hits(ctx: SearchContext, combos, req1, req0) -> Optional[dict]:
         ctx.stats.inc("lut7_solved", hi - lo)
         seed = ctx.next_seed()
         v = ctx.host_sync_deadline(
-            lambda a=r1, b=r0: ctx.dispatch("lut7_solve", lambda: sweeps.lut7_solve(
-                ctx.words(a), ctx.words(b), jidx, jpp, seed
-            )),
+            lambda a=r1, b=r0: ctx.stream_dispatch(
+                "lut7_solve", {}, (ctx.words(a), ctx.words(b), jidx, jpp, seed),
+            ),
             "lut7.solve",
         )
         if not v[0]:

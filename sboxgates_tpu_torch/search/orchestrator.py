@@ -90,9 +90,20 @@ def generate_graph_one_output(
     ``journal`` records each finished iteration (its checkpoint, the
     budgets, the PRNG position) and the run's end; resumed from it, the
     finished iterations come back from their checkpoints and the run goes
-    on from the recorded position.  Requires ``save_dir``."""
+    on from the recorded position.  Requires ``save_dir``.
+
+    With ``Options.batch_restarts`` (or a fleet) the restarts run as one
+    concurrent batch instead (:func:`.batched.generate_graph_one_output_batched`:
+    independent restarts, no budget ratchet between them)."""
     opt = ctx.opt
     log(f"Generating graphs for output {output}...")
+    if (opt.batch_restarts or opt.fleet) and opt.iterations > 1:
+        from .batched import generate_graph_one_output_batched
+
+        return generate_graph_one_output_batched(
+            ctx, st, targets, output, save_dir=save_dir, log=log,
+            journal=journal,
+        )
     mask = tt.mask_table(st.num_inputs)
     results = []
     start_it = 0
@@ -155,7 +166,11 @@ def generate_graph(
     ``journal`` records each finished round's beam (by checkpoint name, in
     beam order) and the PRNG position, and the run's end; resumed from it,
     the interrupted round reruns from its recorded position.  Requires
-    ``save_dir``."""
+    ``save_dir``.
+
+    With ``Options.batch_restarts`` (or a fleet) every (iteration x start x
+    missing output) job of a round runs concurrently with the round-start
+    budgets, and the results fold through the same beam in job order."""
     opt = ctx.opt
     num_outputs = sbox_num_outputs(targets)
     mask = tt.mask_table(st.num_inputs)
@@ -171,28 +186,56 @@ def generate_graph(
     while sum(1 for o in start_states[0].outputs if o != NO_GATE) < num_outputs:
         done = sum(1 for o in start_states[0].outputs if o != NO_GATE)
         beam = BeamFold(opt.metric, log)
-        for it in range(opt.iterations):
+
+        def consider(nst: State, output: int) -> None:
+            # Every solution is saved, kept or not (sboxgates.c:746).
+            if beam.consider(nst, output) and save_dir is not None:
+                save_state(nst, save_dir)
+
+        if opt.batch_restarts or opt.fleet:
+            from .batched import run_batched_circuits
+
+            jobs, meta = [], []
+            for it in range(opt.iterations):
+                for start in start_states:
+                    for output in range(num_outputs):
+                        if start.outputs[output] != NO_GATE:
+                            continue
+                        nst = start.copy()
+                        if opt.metric == GATES:
+                            nst.max_gates = beam.max_gates
+                        else:
+                            nst.max_sat_metric = beam.max_sat_metric
+                        jobs.append((nst, targets[output], mask))
+                        meta.append(output)
             log(
                 f"Generating circuits with {done + 1} output"
-                f"{'' if done == 0 else 's'}. ({it + 1}/{opt.iterations})"
+                f"{'' if done == 0 else 's'}. ({len(jobs)} batched jobs)"
             )
-            for start in start_states:
-                for output in range(num_outputs):
-                    if start.outputs[output] != NO_GATE:
-                        log(f"Skipping output {output}.")
-                        continue
-                    log(f"Generating circuit for output {output}...")
-                    nst = start.copy()
-                    if opt.metric == GATES:
-                        nst.max_gates = beam.max_gates
-                    else:
-                        nst.max_sat_metric = beam.max_sat_metric
-                    nst.outputs[output] = create_circuit(
-                        ctx, nst, targets[output], mask, []
-                    )
-                    # Every solution is saved, kept or not (sboxgates.c:746).
-                    if beam.consider(nst, output) and save_dir is not None:
-                        save_state(nst, save_dir)
+            for output, (nst, out) in zip(meta, run_batched_circuits(ctx, jobs)):
+                nst.outputs[output] = out
+                consider(nst, output)
+        else:
+            for it in range(opt.iterations):
+                log(
+                    f"Generating circuits with {done + 1} output"
+                    f"{'' if done == 0 else 's'}. ({it + 1}/{opt.iterations})"
+                )
+                for start in start_states:
+                    for output in range(num_outputs):
+                        if start.outputs[output] != NO_GATE:
+                            log(f"Skipping output {output}.")
+                            continue
+                        log(f"Generating circuit for output {output}...")
+                        nst = start.copy()
+                        if opt.metric == GATES:
+                            nst.max_gates = beam.max_gates
+                        else:
+                            nst.max_sat_metric = beam.max_sat_metric
+                        nst.outputs[output] = create_circuit(
+                            ctx, nst, targets[output], mask, []
+                        )
+                        consider(nst, output)
         if not beam.states:
             if journal is not None:
                 journal.append("run_done", beam=[])

@@ -122,6 +122,22 @@ def filter_cost(n: int, b: int) -> dict:
 WALSH_THREADS = 512     # csrc/walsh_score.cu: threads per block
 
 
+def lanes_cost(cost: dict, lanes: int) -> dict:
+    """The cost of a lane form: ``lanes`` times the single-lane ``cost``
+    (every lane reads its own operands and writes its own outputs)."""
+    return {k: lanes * v for k, v in cost.items()}
+
+
+def window_lanes_cost(swept: int, slots: int, tl: int, th: int) -> dict:
+    """The cost of a K1 lane-form launch of ``slots`` tile slots (lanes x
+    window) of which the lanes sweep ``swept``: the swept tiles'
+    :func:`window_cost`, and the all-ones words, empty flags and zero count
+    each inert slot writes."""
+    cost = window_cost(swept, tl, th, "packed")
+    cost["bytes"] += (slots - swept) * (9 * tl * th + 4)
+    return cost
+
+
 def walsh_cost(b: int, sms: int) -> dict:
     """Bytes and 32-bit integer operations of K5 over ``b`` gates, as the
     kernel computes the function (one transform of the spectrum per block,

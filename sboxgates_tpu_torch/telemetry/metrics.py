@@ -70,6 +70,26 @@ METRICS: Dict[str, MetricDef] = {
     "engine_nodes": MetricDef(COUNTER, "nodes", "search nodes completed in the native engine"),
     "python_nodes": MetricDef(COUNTER, "nodes", "search nodes completed by the Python recursion"),
     "engine_devcalls": MetricDef(COUNTER, "calls", "device-work services for the native engine"),
+    # rendezvous / restart batching (search/batched.py)
+    "restart_batch_submits": MetricDef(COUNTER, "submits", "restart-batch rendezvous submits"),
+    "restart_batch_dispatches": MetricDef(COUNTER, "dispatches", "restart-batch merged dispatches"),
+    # fleet (search/fleet.py)
+    "fleet_submits": MetricDef(COUNTER, "submits", "fleet rendezvous submits"),
+    "fleet_rounds": MetricDef(COUNTER, "rounds", "fleet rendezvous flush rounds"),
+    "fleet_dispatches": MetricDef(COUNTER, "dispatches", "merged fleet group dispatches"),
+    "fleet_singletons": MetricDef(COUNTER, "dispatches", "1-entry fleet groups (direct dispatch)"),
+    "fleet_stacked_dispatches": MetricDef(COUNTER, "dispatches", "stacked-ladder fleet dispatches"),
+    "fleet_lanes": MetricDef(
+        COUNTER, "lanes",
+        "total fleet lanes dispatched (the lanes that ran: the port pads no "
+        "group with duplicate lanes)",
+    ),
+    "batched_rows": MetricDef(COUNTER, "rows", "rendezvous-batched kernel rows"),
+    "job_seconds": MetricDef(HISTOGRAM, "s", "per-job total wall time"),
+    "job_time_to_first_hit_s": MetricDef(
+        HISTOGRAM, "s",
+        "per-job wall time from job start to its first completed circuit",
+    ),
     # heartbeat and live introspection
     "heartbeats": MetricDef(COUNTER, "lines", "telemetry.jsonl heartbeat lines written"),
     "status_requests": MetricDef(
@@ -266,6 +286,14 @@ class MetricsRegistry(MutableMapping):
                     self._hists[k] = h
                 else:
                     mine.merge(h)
+
+    def ensure(self, *names: str) -> None:
+        """Seeds ``names`` at 0 where unset, so a report lists them before
+        their first increment."""
+        with self._lock:
+            for n in names:
+                self._check(n)
+                self._values.setdefault(n, 0)
 
     def restore(self, snapshot: dict) -> None:
         """Resets the scalar metrics to ``snapshot`` (a bailed engine

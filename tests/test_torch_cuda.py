@@ -91,24 +91,25 @@ def test_cuda_pivot_kernels_match_plain(tl, th):
         assert torch.equal(a, w)
 
 
-def _planted_pivot(device, excl=(), backend="packed"):
-    """Pivot operands of the planted G = 50 state of tests/planted.py,
-    built with the port (8 inputs, XOR gates, the 5-LUT 0xB4(0x2D(g12,
-    g26, g41), g19, g33) as the target), on ``device``."""
+def _planted_pivot(device, excl=(), backend="packed", seed=5, g=50):
+    """Pivot operands of a planted state of ``g`` XOR gates (G = 50 at the
+    default seed: the state of tests/planted.py), built with the port (8
+    inputs, the 5-LUT 0xB4(0x2D(g12, g26, g41), g19, g33) as the target),
+    on ``device``."""
     from sboxgates_tpu_torch.core import boolfunc as bf
     from sboxgates_tpu_torch.graph.state import GATES, State
     from sboxgates_tpu_torch.search.lut import PivotOperands
 
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     st = State.init_inputs(8)
-    while st.num_gates < 50:
+    while st.num_gates < g:
         a, b = rng.choice(st.num_gates, size=2, replace=False)
         st.add_gate(bf.XOR, int(a), int(b), GATES)
     outer = tt.eval_lut(0x2D, st.table(12), st.table(26), st.table(41))
     target = tt.eval_lut(0xB4, outer, st.table(19), st.table(33))
     tabs = np.zeros((64, 8), np.uint32)
-    tabs[:50] = st.live_tables()
-    return PivotOperands(50, 256, 512, list(excl), sweeps.as_words(tabs, device),
+    tabs[:g] = st.live_tables()
+    return PivotOperands(g, 256, 512, list(excl), sweeps.as_words(tabs, device),
                          target, tt.mask_table(8), device, backend=backend)
 
 
@@ -163,6 +164,86 @@ def test_cuda_pivot_stream_matches_cpu(cap, solve_rows, backend, monkeypatch):
     assert pivot_tile.launches[backend] > before
     np.testing.assert_array_equal(out[0], out[1])
     assert out[1][0] == (1 if solve_rows == 64 else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 8, 64])
+def test_cuda_lut5_filter_lanes_matches_plain(lanes):
+    """K3's lane form against its plain version (every lane its own
+    tables, combos, target and mask), one launch per call."""
+    dev = _cuda()
+    rng = np.random.default_rng(lanes)
+    n, b = 5000, 64
+    tables = _t(_words(rng, lanes, b, 8)).to(dev)
+    combos = torch.from_numpy(
+        np.sort(rng.integers(0, b, size=(lanes, n, 5)), axis=2).astype(np.int32)
+    ).to(dev)
+    target, mask = _t(_words(rng, lanes, 8)).to(dev), _t(_words(rng, lanes, 8)).to(dev)
+    before = lut5_filter.lane_launches
+    got = lut5_filter.lut5_filter_cells_lanes(tables, combos, target, mask)
+    assert lut5_filter.lane_launches == before + 1
+    want = lut5_filter.lut5_filter_cells_lanes_plain(tables, combos, target, mask)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 4, 8])
+def test_cuda_pivot_window_lanes_matches_plain(width):
+    """K1's lane form against its plain version: 6 lanes, each with its own
+    planted state (its own tables, pair cells, validity and descriptors:
+    G = 50, 49 and 48, one lane with an excluded pivot, the pair arrays
+    padded to the longest), at their own windows: one at its planted hit's
+    tile, one cut by its t_end, one done (t0 = t_end).  One launch, and
+    the swept tiles counted."""
+    dev = _cuda()
+    lanes = 6
+    ops = [_planted_pivot(dev, excl=(5,) if i == 2 else (), seed=5 + i,
+                          g=50 - i % 3) for i in range(lanes)]
+    _, w_tab, m_tab = sweeps.lut5_split_tables()
+    hit = int(sweeps.lut5_pivot_stream(
+        *ops[1].stream_args(), 0, ops[1].t_real, sweeps.as_words(w_tab, dev),
+        sweeps.as_words(m_tab, dev), 7, tl=256, th=512)[8]) - 1
+    pad = lambda j: sweeps._pad_rows(  # noqa: E731
+        [o.stream_args()[j] for o in ops], 1 if j < 4 else 0)
+    tmax = max(o.t_real for o in ops)
+    descs = torch.zeros((lanes, tmax, 5), dtype=torch.int32)
+    for i, o in enumerate(ops):
+        descs[i, : o.t_real] = torch.from_numpy(o.descs)
+    args = (pad(0), pad(1), pad(2), pad(3), pad(4), pad(5), descs.to(dev))
+    real = [o.t_real for o in ops]
+    t0 = [0, hit, 40, real[3] - 2, 30, 60]
+    t_end = [real[0], real[1], 41, real[3], 30, real[5]]
+    swept = sum(max(0, min(width, e - s)) for s, e in zip(t0, t_end))
+    before = pivot_tile.launches["lanes"], pivot_tile.tiles["lanes"]
+    got = pivot_tile.pivot_window_lanes(*args, t0, width, t_end, 256, 512)
+    assert (pivot_tile.launches["lanes"], pivot_tile.tiles["lanes"]) == (
+        before[0] + 1, before[1] + swept)
+    want = pivot_tile.pivot_window_lanes_plain(*args, t0, width, t_end, 256, 512)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    assert int(got[3][1].sum()) > 0 and int(got[3][4].sum()) == 0
+    assert len({o.tables.cpu().numpy().tobytes() for o in ops}) == lanes
+
+
+@pytest.mark.cuda
+def test_cuda_pivot_stream_lanes_match_cpu():
+    """The lanes' pivot sweeps on the card (K1's lane form) give the CPU's
+    verdicts, and the single-lane sweeps'."""
+    dev = _cuda()
+    _, w_tab, m_tab = sweeps.lut5_split_tables()
+    out = []
+    for d in (torch.device("cpu"), dev):
+        ops = _planted_pivot(d)
+        rows = [(*ops.stream_args(), s, ops.t_real, sweeps.as_words(w_tab, d),
+                 sweeps.as_words(m_tab, d), seed)
+                for s, seed in ((0, 2024), (10, 7), (30, -1), (0, 99))]
+        out.append(sweeps.lut5_pivot_stream_lanes(rows, tl=256, th=512))
+        if d.type == "cuda":
+            single = [sweeps.lut5_pivot_stream(*r, tl=256, th=512) for r in rows]
+    for a, b, c in zip(out[0], out[1], single):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(b, c)
 
 
 @pytest.mark.cuda
@@ -245,3 +326,34 @@ def test_cuda_eval_sbox_reproduces_an_example():
     got = eval_sbox(st, "cuda")
     assert cuda_kernel.launches == before + 1
     np.testing.assert_array_equal(got & 1, sbox[: 1 << n] & 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 6])
+def test_cuda_one_merged_round_syncs_once(lanes):
+    """One lockstep round of the lanes' 5-LUT streams (one chunk each: K3
+    and the solve of every lane) makes one host sync on the card, as CUDA's
+    sync debug mode counts them, for one lane and for six."""
+    import math
+
+    from sboxgates_tpu_torch.utils.guards import sync_guard
+
+    dev = _cuda()
+    rng = np.random.default_rng(21)
+    _, w_tab, m_tab = sweeps.lut5_split_tables()
+    jw, jm = sweeps.as_words(w_tab, dev), sweeps.as_words(m_tab, dev)
+    rows = []
+    for i in range(lanes):
+        g = 14 + i
+        tabs = _words(rng, 64, 8)
+        rows.append((sweeps.as_words(tabs, dev), sweeps.binom_device(dev), g,
+                     sweeps.as_words(tabs[0] ^ tabs[g - 1], dev),
+                     sweeps.as_words(np.full(8, 0xFFFFFFFF, np.uint32), dev),
+                     torch.full((8,), -1, dtype=torch.int32, device=dev), 0,
+                     math.comb(g, 5), jw, jm, 3 + i))
+    want = sweeps.lut5_stream_lanes(rows, chunk=1 << 14)
+    with sync_guard(action="count", device=dev) as rep:
+        got = sweeps.lut5_stream_lanes(rows, chunk=1 << 14)
+    assert rep.syncs == 1, rep.events
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)

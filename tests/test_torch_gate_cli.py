@@ -187,18 +187,17 @@ def test_gate_mode_failures_match_the_jax_cli(argv, message, capsys, tmp_path):
 
 
 def test_threaded_engine_mux_is_rejected(monkeypatch, capsys, tmp_path):
-    """The threaded engine mux is refused on the native route, where an
-    engine runs; the device route runs no engine and ignores it, as the
-    JAX CLI does."""
+    """The threaded engine mux (the LUT engine's, ported since) is no
+    longer rejected: a gate-mode run, whose gate engine has no threaded mux,
+    writes the JAX CLI's file on the native route with the variable set, and
+    the device route runs no engine and ignores it, as the JAX CLI does
+    (the LUT engine's threaded mux: tests/test_torch_batched.py)."""
     monkeypatch.setenv("SBG_ENGINE_MUX_THREADS", "4")
     _route(monkeypatch, "native")
-    assert cli.main(CASES["fa"] + ["--device", "cpu",
-                                   "--output-dir", str(tmp_path)]) == 1
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and "SBG_ENGINE_MUX_THREADS=4" in err[0]
-    assert not os.listdir(tmp_path)
+    got, _ = _run(CASES["fa"], tmp_path / "native", capsys)
+    assert got == _xml_files(os.path.join(GATE, "fa_native"))
     _route(monkeypatch, "off")
-    got, _ = _run(CASES["fa"], tmp_path, capsys)
+    got, _ = _run(CASES["fa"], tmp_path / "off", capsys)
     assert got == _xml_files(os.path.join(GATE, "fa_off"))
 
 

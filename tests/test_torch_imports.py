@@ -60,6 +60,10 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.telemetry.watch",
         "sboxgates_tpu_torch.utils.profile",
         "sboxgates_tpu_torch.utils.guards",
+        "sboxgates_tpu_torch.search.batched",
+        "sboxgates_tpu_torch.search.fleet",
+        "sboxgates_tpu_torch.search.multibox",
+        "sboxgates_tpu_torch.search.warmup",
     ):
         assert name in mods
 

@@ -191,13 +191,19 @@ REFUSALS = {
     "version": dict(version=3),
     "missing_key": dict(pipeline_depth=...),
     "mesh": dict(mesh=True),
-    "fleet": dict(fleet=True),
+    # A fleet, batched restarts and several inputs resume in the port now;
+    # what it still refuses of each: a fleet sharded over several cards, a
+    # batch on a mesh, a sweep sharded over processes.
+    "fleet": dict(fleet=True, fleet_candidates=2),
     "serve": dict(serve=True),
-    "batch_iterations": dict(batch_iterations=True),
+    "batch_iterations": dict(batch_iterations=True, mesh=True),
     "chain_rounds": dict(chain_rounds=2),
     "shard_sweep": dict(shard_sweep=True),
-    "several_inputs": dict(input=[FA, FA]),
+    "several_inputs": dict(input=[FA, FA], shard_sweep=True),
 }
+# The setting each refusal names, where it is not the case's own.
+REFUSED_KEY = {"fleet": "fleet_candidates", "batch_iterations": "mesh",
+               "several_inputs": "shard_sweep"}
 # The refusals the JAX CLI makes too, with its message.
 SHARED = ("version", "missing_key", "no_journal")
 
@@ -220,5 +226,5 @@ def test_a_journal_the_port_cannot_resume_is_refused_in_one_line(
 
         assert jcli.main(["--resume-run", d]) == 1
         assert capsys.readouterr().err.strip().splitlines()[-1] == err
-    elif case != "several_inputs":
-        assert f"records {case}=" in err
+    else:
+        assert f"records {REFUSED_KEY.get(case, case)}=" in err

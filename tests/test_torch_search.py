@@ -360,8 +360,10 @@ def test_bad_flags_fail_with_the_jax_message(argv, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-o", "0", DES, FA],
-    ["-l", DES, FA],
+    # Several S-box files run since the job axis was ported; a fleet whose
+    # lanes shard over several cards is still not ported.
+    ["-o", "0", "--fleet-candidates", "2", DES, FA],
+    ["-l", "--fleet", "--fleet-candidates", "4", DES, FA],
 ])
 def test_unported_modes_fail_with_one_line(argv, capsys):
     assert cli.main(argv + ["--device", "cpu"]) == 1
