@@ -111,7 +111,29 @@ prints no result.  Phases, each of which raises on failure:
       attribution row at N = 2^17;
    c. the flight dumps of phase 8's runs: 8a's crash dumps before exit 17,
       8c leaves a ``deadline_exhausted`` and a ``circuit_breaker`` dump,
-      each with its heartbeat incident line.
+      each with its heartbeat incident line;
+11. the job axis (JOB_RUNS, goldens of tests/torch_job_goldens.py), and
+   11e: the lane forms against their plain versions (run after phase 2);
+12. chained rounds, the serve and the result store (ROUND_RUNS, goldens of
+   tests/torch_round_goldens.py):
+   a. one round-driver window of the planted chain, its host syncs
+      (``utils.guards.sync_guard``) and K3 launches per round, against its
+      CPU run; DES S1 as one chain (``-l --chain-rounds 8 --serial-mux``)
+      at N = 8 and N = 1 on both routes, its round-driver windows, host
+      rounds and K3 launches;
+   b. the DES-8 one-output serve and a chained serve of eight planted
+      boxes on the device route, each merged and with
+      ``--serve-no-merge`` (the same files), jobs/s and K3's lane-form
+      launches (merged only);
+   c. a serve that fills a ``--result-store`` and the same serve again:
+      no kernel launch and no device dispatch, 8 store hits, the lookup
+      latency;
+   d. the chained serve (default route) in a fresh process, SIGTERM after
+      its first job, and the same command again: the uninterrupted
+      serve's files (a job finished before the signal runs again and its
+      journal gains a second ``run_done``, as in the JAX package).
+   ``--rounds`` runs the build and phase 12 alone, with the DES-8 serve on
+   the device route too.
 
 Every CLI run's output directory must hold the JAX CLI's names for the same
 command and nothing else: its XML files, the journal
@@ -121,8 +143,8 @@ tests/torch_journal_goldens.py), the telemetry of an explicit
 ``--output-dir`` (``telemetry.jsonl``, ``metrics.json``), and the trace and
 the flight dumps where the run makes them.
 
-The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b) and phase 6 are the
-main path.  Every launch
+The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b, 11, 12) and phase 6
+are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
 kernel and K2's on the G = 99 resume with their backend, K5 on the
@@ -2104,6 +2126,359 @@ def phase_jobs(dev, on_path) -> dict:
     return out
 
 
+# -------------------------------------------------------------------------
+# Phase 12: chained rounds, the serve and the result store
+# -------------------------------------------------------------------------
+
+
+def round_goldens():
+    """tests/torch_round_goldens.py: the chain and serve CLI cases and their
+    JAX CLI goldens (tests/data/torch_golden/rounds|serve/<case>/)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_round_goldens
+
+    return torch_round_goldens
+
+
+@contextlib.contextmanager
+def in_dir(d: str):
+    prev = os.getcwd()
+    os.makedirs(d, exist_ok=True)
+    os.chdir(d)
+    try:
+        yield
+    finally:
+        os.chdir(prev)
+
+
+def run_round_case(dev, label: str, case: str, outdir: str, extra=(),
+                   n1=False, steps=None, tag=None):
+    """The commands of one case of tests/torch_round_goldens.py in process
+    on ``dev``, from their own directory (relative ``--output-dir D`` and
+    ``--result-store S``), the last command's directory (and the store)
+    held against the JAX CLI's files; ``extra`` is added to the last
+    command.  ``n1`` runs a chain case at ``--chain-rounds 1`` against its
+    N = 8 golden (:func:`_n1_golden`).  ``steps`` runs only those commands
+    (in the directory ``tag`` names, shared by the steps of one case); the
+    golden is checked after the last.  Returns (wall seconds of the last
+    command run, its metrics.json, the seconds in round-driver windows and
+    in host rounds)."""
+    from sboxgates_tpu_torch import cli
+
+    g = round_goldens()
+    h = job_cases()
+    _, cmds, store = g.CASES[case]
+    tag = tag or label.replace(" ", "_").replace("=", "")
+    cwd = os.path.join(outdir, tag)
+    golden = g.golden_dir(case)
+    if n1:
+        argv, env, _ = cmds[0]
+        i = argv.index("--chain-rounds")
+        cmds = [(argv[: i + 1] + ["1"] + argv[i + 2:], env, None)]
+        edited = os.path.join(outdir, tag + "_golden")
+        for base, _, files in os.walk(golden):
+            for f in files:
+                src = os.path.join(base, f)
+                dst = os.path.join(edited, os.path.relpath(src, golden))
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                with open(src, "rb") as fi, open(dst, "wb") as fo:
+                    fo.write(_n1_golden(f, fi.read()))
+        golden = edited
+    from sboxgates_tpu_torch.ops import sweeps
+    from sboxgates_tpu_torch.search import rounds
+
+    groups = {"windows": [(sweeps, "round_driver_lanes")],
+              "host_rounds": [(rounds._ChainLane, "host_round")]}
+    steps = range(len(cmds)) if steps is None else steps
+    with in_dir(cwd):
+        for i in steps:
+            argv, env, _ = cmds[i]
+            last = i == len(cmds) - 1
+            d = "D" if last else f"D{i}"
+            buf, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(err), h.environ(env), \
+                    timing_calls(groups) as spent:
+                rc = cli.main([*argv, *(extra if last else ()), "--device",
+                               dev.type, "--output-dir", d])
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"{label} exited {rc}: "
+                                     f"{err.getvalue()[-2000:]}")
+        if not last:
+            log(f"{label}: {wall:.3f} s")
+            return wall, None, spent
+        g.compare_dir(golden, "D", "S" if store else None)
+        if "--serve" in argv:
+            xmls = sum(verify_outputs(os.path.join("D", j), [b])
+                       for j, b in serve_jobs(argv))
+        else:
+            xmls = verify_outputs("D", argv)
+        with open(os.path.join("D", "metrics.json"), encoding="utf-8") as f:
+            snap = json.load(f)
+    counters = snap["counters"]
+    log(f"{label}: {xmls} state files in {wall:.3f} s, every file "
+        "byte-identical to the JAX CLI's, outputs verified; device_dispatches "
+        f"{counters.get('device_dispatches', 0)}, round_driver_rounds "
+        f"{counters.get('round_driver_rounds', 0)}, round_driver_fallbacks "
+        f"{counters.get('round_driver_fallbacks', 0)}, fleet_dispatches "
+        f"{counters.get('fleet_dispatches', 0)}, serve_merged_dispatches "
+        f"{counters.get('serve_merged_dispatches', 0)}, store_hits "
+        f"{counters.get('store_hits', 0)}; {spent['windows'][1]} round-driver "
+        f"windows {spent['windows'][0]:.3f} s, {spent['host_rounds'][1]} host "
+        f"rounds {spent['host_rounds'][0]:.3f} s (summed over the serve's "
+        "lanes)")
+    return wall, snap, spent
+
+
+def serve_jobs(argv):
+    """(job directory, S-box) of each job of a serve command, the CLI's
+    job ids."""
+    boxes = [a for a in argv if a.endswith(".txt")]
+    return [(f"job{i:02d}-{os.path.splitext(os.path.basename(b))[0]}", b)
+            for i, b in enumerate(boxes)]
+
+
+def chain_window_syncs(dev) -> dict:
+    """12a: one round-driver window on the card, the planted chain's first
+    8 rounds from the bare inputs (rounds 0-4 finish on the device, round 5
+    freezes): its host syncs counted by ``utils.guards.sync_guard`` (CUDA's
+    sync debug mode) and its K3 launches, per round and per window."""
+    import numpy as np
+    import torch
+
+    from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.graph.state import State
+    from sboxgates_tpu_torch.ops import lut5_filter, sweeps
+    from sboxgates_tpu_torch.search import context as C
+    from sboxgates_tpu_torch.utils.guards import sync_guard
+    from sboxgates_tpu_torch.utils.sbox import load_sbox
+
+    g = round_goldens()
+    sbox, n_in = load_sbox(g.planted_path())
+    st = State.init_inputs(n_in)
+    rb = 8
+    pad = np.zeros((64, 8), np.uint32)
+    pad[: st.num_gates] = st.live_tables()
+    targets = np.stack([tt.target_table(sbox, b) for b in range(8)])
+    masks = np.stack([tt.mask_table(n_in)] * 8)
+    seeds = np.arange(1, 9, dtype=np.int32) * 7919
+    dcs = np.arange(8, dtype=np.int32) * 37
+    splits, w_tab, m_tab = sweeps.lut5_split_tables()
+    w = lambda a: sweeps.as_words(a, dev)  # noqa: E731
+    args = (w(pad), sweeps.binom_device(dev), st.num_gates, w(targets),
+            w(masks), torch.full((8,), -1, dtype=torch.int32, device=dev),
+            seeds, dcs, rb, C.PIVOT_MIN_TOTAL, splits, w(w_tab), w(m_tab))
+    statics = dict(chunk3=C.STREAM_CHUNK[3], chunk5=C.STREAM_CHUNK[5],
+                   has5=True, max_rounds=rb, solve_rows=C.LUT5_HEAD_SOLVE_ROWS)
+    want = sweeps.round_driver(*(a.cpu() if hasattr(a, "cpu") else a
+                                 for a in args), **statics)
+    sweeps.round_driver(*args, **statics)              # warm: allocations
+    lut5_filter.launches = 0
+    with sync_guard(action="count", device=dev) as rep:
+        hits = sweeps.round_driver(*args, **statics)
+    k3 = lut5_filter.launches
+    if not np.array_equal(hits, want):
+        raise AssertionError(f"12a: the round driver on the card differs from "
+                             f"its CPU run:\n{hits}\n{want}")
+    done = int(hits[rb, 0])
+    run = done + (1 if done < rb else 0)
+    out = {"rounds_done": done, "rounds_run": run, "syncs": rep.syncs,
+           "syncs_per_round": rep.syncs / run, "k3": k3,
+           "kinds": [int(k) for k in hits[:run, 0]]}
+    log(f"  12a one round-driver window of {rb} rounds on the planted chain: "
+        f"{done} rounds done on the card (kinds {out['kinds']}), "
+        f"{rep.syncs} host syncs = {out['syncs_per_round']:.2f} per round run "
+        f"(the JAX driver: 1 per window), {k3} K3 launches in the window; "
+        "equal to its CPU run")
+    return out
+
+
+def _n1_golden(rel: str, data: bytes) -> bytes:
+    """The N = 8 golden as the N = 1 run's: only the journal's recorded
+    chain_rounds differs (the JAX package's window-split invariance, held
+    against its N = 1 and N = 4 goldens in tests/test_torch_rounds.py)."""
+    if "journal" in rel:
+        return data.replace(b'"chain_rounds": 8', b'"chain_rounds": 1')
+    return data
+
+
+#: Phase 12's CLI runs: (label, case, extra argv of its last command,
+#: whether it runs at N = 1 against the case's N = 8 golden, the commands
+#: it runs (None: all), whether only ``--rounds`` runs it).  The DES-8
+#: serve on the device route (K3's lane form under merged waves; 72 s
+#: merged and 146 s not on the card) is the ``--rounds`` mode's only.
+ROUND_RUNS = (
+    ("12a DES S1 chain N=8", "des_s1_n8", (), False, None, False),
+    ("12a DES S1 chain N=1", "des_s1_n8", (), True, None, False),
+    ("12a DES S1 chain N=8 device route", "des_s1_n8_dev", (), False, None,
+     False),
+    ("12a DES S1 chain N=1 device route", "des_s1_n8_dev", (), True, None,
+     False),
+    ("12b DES-8 serve merged", "serve_des8_o0", (), False, None, False),
+    ("12b DES-8 serve no-merge", "serve_des8_o0", ("--serve-no-merge",),
+     False, None, False),
+    ("12b chained serve merged", "serve_chain8_dev", (), False, None, False),
+    ("12b chained serve no-merge", "serve_chain8_dev", ("--serve-no-merge",),
+     False, None, False),
+    ("12b DES-8 serve merged device route", "serve_des8_o0_dev", (), False,
+     None, True),
+    ("12b DES-8 serve no-merge device route", "serve_des8_o0_dev",
+     ("--serve-no-merge",), False, None, True),
+    ("12c result-store fill", "serve_chain8_store", (), False, [0], False),
+    ("12c result-store re-serve", "serve_chain8_store", (), False, [1], False),
+)
+
+
+def phase_rounds(dev, on_path, extended=False) -> dict:
+    """Phase 12: the chained rounds (12a: DES S1 as one chain of N = 8 and
+    N = 1 on both routes, one window's host syncs), the serve (12b: DES-8
+    and a chained serve, each merged and with --serve-no-merge), the result
+    store (12c: a re-serve answered from the store with no kernel launch)
+    and a SIGTERM drain (12d), each CLI run a counted path held against the
+    JAX CLI's files.  ``extended`` adds the runs only ``--rounds`` makes."""
+    out = {"window": chain_window_syncs(dev)}
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        for label, case, extra, n1, steps, ext in ROUND_RUNS:
+            if ext and not extended:
+                continue
+            box = {}
+            tag = case if steps is not None else None
+            counts = on_path(label, lambda lb=label, c=case, e=extra, n=n1,
+                             st=steps, t=tag: box.update(
+                                 r=run_round_case(dev, lb, c, outdir, e, n, st,
+                                                  t)))
+            out[label] = (counts, *box["r"])
+        out["12d"] = phase_serve_drain(dev, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    kernel_counts = ("lut5_filter", "lut5_filter_lanes", "pivot_window",
+                     "pivot_window_lanes", "pivot_pre", "walsh_score",
+                     "circuit_eval")
+    for label, val in out.items():
+        if not label.startswith("12") or label == "12d" or val[2] is None:
+            continue
+        counts, wall, snap, spent = val
+        c = snap["counters"]
+        if label.startswith("12c"):
+            if any(counts[k] for k in kernel_counts) or \
+                    c.get("device_dispatches", 0) or c.get("store_hits") != 8:
+                raise AssertionError(f"12c: the re-serve launched {counts}, "
+                                     f"{c.get('device_dispatches')} dispatches, "
+                                     f"{c.get('store_hits')} store hits")
+            q = snap["histograms"]["store_get_s"]
+            log(f"  12c: 8 store hits, no kernel launch, no device dispatch; "
+                f"lookup latency {1e3 * q['total'] / q['count']:.3f} ms mean "
+                f"(max {1e3 * q['max']:.3f} ms) over {q['count']} lookups, the "
+                f"whole re-serve {wall:.3f} s")
+        elif label.startswith("12b"):
+            log(f"  {label}: {8 / wall:.3f} jobs/s, K3 lane-form launches "
+                f"{counts['lut5_filter_lanes']}, single-lane "
+                f"{counts['lut5_filter']}, merged dispatches "
+                f"{c.get('serve_merged_dispatches', 0)}")
+        else:
+            hist = snap["histograms"].get("rounds_per_dispatch", {})
+            log(f"  {label}: {hist.get('count', 0)} round_driver windows, "
+                f"{c.get('round_driver_rounds', 0)} rounds on the card, "
+                f"{c.get('round_driver_fallbacks', 0)} host rounds, K3 "
+                f"launches {counts['lut5_filter']}")
+    for kind in ("chained serve", "DES-8 serve"):
+        for suffix in ("", " device route"):
+            m = out.get(f"12b {kind} merged{suffix}")
+            u = out.get(f"12b {kind} no-merge{suffix}")
+            if m is None:
+                continue
+            if u[0]["lut5_filter_lanes"] or (
+                    kind == "chained serve" or suffix) and (
+                    m[0]["lut5_filter_lanes"] <= 0
+                    or m[2]["counters"].get("serve_merged_dispatches", 0) <= 0):
+                raise AssertionError(f"12b {kind}{suffix}: K3's lane form and "
+                                     "merged dispatches must run in the merged "
+                                     "serve only")
+    return out
+
+
+def phase_serve_drain(dev, outdir: str) -> dict:
+    """12d: the chained serve (default route) in a fresh process, SIGTERM
+    once its first job is done; the same command again finishes every job,
+    and the directory then holds the JAX CLI's files of the uninterrupted
+    serve."""
+    import signal as _signal
+
+    g = round_goldens()
+    argv, env, _ = g.CASES["serve_chain8"][1][0]
+    cwd = os.path.join(outdir, "12d")
+    os.makedirs(cwd)
+    full = [*argv, "--device", dev.type, "--output-dir", os.path.join(cwd, "D")]
+    penv = dict(os.environ, PYTHONUNBUFFERED="1")
+    penv.pop("SBG_DISABLE_NATIVE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _CLI_PROCESS, ROOT, json.dumps(full)],
+        env=penv, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True,
+    )
+    done_before = 0
+    try:
+        for line in proc.stdout:
+            if line.startswith("serve: job") and " done " in line:
+                done_before += 1
+                proc.send_signal(_signal.SIGTERM)
+                break
+        proc.stdout.read()
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    first = time.perf_counter() - t0
+    if rc != -_signal.SIGTERM:
+        raise AssertionError(f"12d: the serve exited {rc}, not by SIGTERM")
+    finished = sum(
+        1 for j, _ in serve_jobs(argv)
+        if os.path.exists(os.path.join(cwd, "D", j, "search.journal.json"))
+        and '"run_done"' in open(os.path.join(cwd, "D", j,
+                                              "search.journal.json")).read())
+    drained = [j for j, _ in serve_jobs(argv)
+               if os.path.isdir(os.path.join(cwd, "D", j))
+               and any(f.startswith("flight-")
+                       for f in os.listdir(os.path.join(cwd, "D", j)))]
+    rc2, _, second, _ = cli_process(full, penv, "12d the same serve again")
+    if rc2 != 0:
+        raise AssertionError(f"12d: the re-run exited {rc2}")
+    # The jobs the first run finished run again in the second, as in the
+    # JAX package: their journals gain a second run_done record.
+    want = g.files_of(g.golden_dir("serve_chain8"))
+    got = g.files_of(os.path.join(cwd, "D"))
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"12d: files {sorted(got)} != {sorted(want)}")
+    again = 0
+    for rel in want:
+        if got[rel] == want[rel]:
+            continue
+        if rel.endswith(".jsonl"):
+            w, gg = ([json.loads(x) for x in b.splitlines()]
+                     for b in (want[rel], got[rel]))
+        elif rel.endswith(".json"):
+            w, gg = (json.loads(b)["records"] for b in (want[rel], got[rel]))
+        else:
+            raise AssertionError(f"12d: {rel} differs from the JAX CLI's")
+        if gg[: len(w)] != w or [r["type"] for r in gg[len(w):]] != ["run_done"]:
+            raise AssertionError(f"12d: {rel} differs from the JAX CLI's")
+        again += rel.endswith(".jsonl")
+    log(f"  12d: SIGTERM after {done_before} job(s) done ({first:.2f} s), "
+        f"{finished} of 8 jobs finished then, {len(drained)} drained with a "
+        f"flight dump; the re-run ({second:.2f} s) finished the rest: every "
+        f"XML file the JAX CLI's uninterrupted serve's, every journal too but "
+        f"the {again} finished jobs' second run_done record")
+    if again > finished or finished >= 8:
+        raise AssertionError(f"12d: {finished} jobs finished before the "
+                             f"SIGTERM, {again} journals ran again")
+    return {"first_s": first, "second_s": second, "finished": finished,
+            "drained": len(drained)}
+
+
 def phase_paths(dev) -> dict:
     """``--paths``: the single-lane device-route paths, timed, for a
     comparison of two trees in one call (this script run from each tree's
@@ -2222,6 +2597,27 @@ def main() -> int:
         # The single-lane paths' times only (phase_paths), no result line.
         print(gpu_line(), flush=True)
         print(json.dumps(phase_paths(dev)), flush=True)
+        return 0
+    if "--rounds" in sys.argv[1:]:
+        # Phase 12 alone (its CLI runs counted as in a whole run), no
+        # result line.
+        from sboxgates_tpu_torch.ops import lut5_filter as _l5
+
+        def counted_path(name, drive) -> dict:
+            _l5.launches = 0
+            _l5.lane_launches = 0
+            zero_pivot_counts()
+            spectral.launches = 0
+            cuda_kernel.launches = 0
+            drive()
+            return lane_counts() | {"lut5_filter": _l5.launches,
+                                    "pivot_window": pivot_tile.launches["packed"],
+                                    "pivot_pre": pivot_tile.launches["pre"],
+                                    "walsh_score": spectral.launches,
+                                    "circuit_eval": cuda_kernel.launches}
+
+        print(gpu_line(), flush=True)
+        phase_rounds(dev, counted_path, extended=True)
         return 0
     log("phase 2 parity")
     par = phase_parity(dev)
@@ -2399,6 +2795,11 @@ def main() -> int:
     jobs = phase_jobs(dev, on_path)
     for case, (counts, _, _) in jobs.items():
         paths[case] = counts
+    # Phase 12: chained rounds, the serve and the result store.
+    rounds = phase_rounds(dev, on_path)
+    for label, val in rounds.items():
+        if label.startswith("12") and label != "12d" and val[2] is not None:
+            paths[label] = val[0]
     if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
         raise AssertionError("a search path launched a single-tile K1 or K2")
     for name in LANE_KERNELS:

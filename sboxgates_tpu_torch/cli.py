@@ -43,6 +43,16 @@ subdirectories), ``--batch-iterations`` runs the ``-i`` restarts as one
 batch, and ``--fleet`` runs the jobs as fleet waves whose sweeps merge
 into the kernels' lane forms; ``--serial-mux`` turns off the concurrent
 mux that a card runs by default (``Options.parallel_mux``).
+``--chain-rounds N`` solves the missing outputs of a LUT search as one
+greedy chain of rounds, up to N per device call (``search/rounds.py``).
+
+Serving, as in the JAX CLI but for its HTTP front door: ``--serve`` runs
+each input file as one job of the fault-tolerant queue of
+``search/serve.py`` (``--serve-lanes``, ``--serve-retries``,
+``--serve-timeout``, ``--serve-no-merge``; per-job files under
+``DIR/<job-id>/``), and ``--result-store DIR`` (or ``SBG_RESULT_STORE``)
+publishes finished circuits to the content-addressed store of ``store/``,
+which serve admission consults first.
 
 Telemetry, as in the JAX CLI: with an explicit ``--output-dir`` (or
 ``--resume-run``) a run also writes the heartbeat ``telemetry.jsonl``
@@ -133,8 +143,54 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable concurrent exploration of mux select bits "
                         "(on by default on a card, off on the CPU; one "
                         "sweep in flight at a time)")
+    p.add_argument("--serve", action="store_true",
+                   help="multi-tenant serve mode: each input S-box file "
+                        "becomes one job in a fault-tolerant queue over one "
+                        "shared context (search/serve.py): lane admission, "
+                        "priority preemption by journal snapshot and "
+                        "requeue (bit-exact resume), per-job retry, timeout "
+                        "and backoff with quarantine for poison jobs, and a "
+                        "graceful SIGTERM drain; requires an explicit "
+                        "--output-dir (per-job journals and files live "
+                        "under DIR/<job-id>/)")
+    p.add_argument("--serve-lanes", type=int, default=4, metavar="N",
+                   help="concurrent serve job lanes (default 4)")
+    p.add_argument("--serve-retries", type=int, default=2, metavar="N",
+                   help="failed attempts a serve job may retry (with "
+                        "exponential backoff) before it is quarantined "
+                        "(default 2)")
+    p.add_argument("--serve-timeout", type=float, default=None, metavar="S",
+                   help="per-attempt wall budget of one serve job in "
+                        "seconds (default: unbounded); a breach is raised "
+                        "at the job's next journal boundary and consumes "
+                        "one retry")
+    p.add_argument("--serve-no-merge", action="store_true",
+                   help="disable merged serve waves: same-bucket jobs "
+                        "admitted together then dispatch their sweeps "
+                        "independently instead of as one lane-form call "
+                        "per round (SBG_SERVE_NO_MERGE=1 is the "
+                        "environment's form; the same files either way)")
+    p.add_argument("--chain-rounds", type=int, default=0, metavar="N",
+                   help="greedy chained-outputs driver (LUT mode, "
+                        "--iterations 1): solve the missing outputs as one "
+                        "chain of rounds, up to N rounds per device call "
+                        "(search/rounds.py; 0 = off, the default beam "
+                        "search).  A round the round driver cannot finish falls "
+                        "back to the full recursive search; the same "
+                        "circuit for every N > 0")
     p.add_argument("--output-dir", default=None, metavar="DIR",
                    help="directory for saved XML states (default: cwd)")
+    p.add_argument("--result-store", default=None, metavar="DIR",
+                   help="content-addressed result store (default: "
+                        "SBG_RESULT_STORE; an empty string disables): "
+                        "finished circuits (and interrupted searches' "
+                        "frontiers) are published to DIR keyed on the "
+                        "canonical form of (target, mask, metric) under "
+                        "input permutation and negation and output "
+                        "complement, and serve admission answers a repeat "
+                        "query from DIR with no device work (the stored "
+                        "circuit re-verified over all 2^8 inputs first); "
+                        "an unwritable DIR degrades to read-only lookups")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the sweeps run (default cuda; cpu runs the "
                         "kernels' plain PyTorch versions)")
@@ -194,6 +250,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reported in the heartbeat start line's "
                         "config).  Observation-only: results are "
                         "bit-identical with or without it")
+    # The JAX CLI's flags of the parts not ported yet (its HTTP front door
+    # and several cards): each is refused in one line.
+    for flag, kw in (("--serve-port", dict(metavar="PORT")),
+                     ("--serve-token-file", dict(metavar="FILE")),
+                     ("--mesh", dict(action="store_true")),
+                     ("--shard-sweep", dict(action="store_true")),
+                     ("--coordinator", dict(metavar="ADDR")),
+                     ("--num-processes", dict(metavar="N")),
+                     ("--process-id", dict(metavar="N"))):
+        p.add_argument(flag, dest="unported_" + flag[2:].replace("-", "_"),
+                       default=None,
+                       help="not ported yet: refused (python -m sboxgates_tpu "
+                            "runs it)", **kw)
     p.add_argument("--metrics-interval", type=float, default=60.0,
                    metavar="S",
                    help="telemetry heartbeat period in seconds (default "
@@ -260,23 +329,13 @@ JOURNAL_KEY_DEFAULTS = {
 UNPORTED_KEYS = {
     "mesh": False,
     "shard_sweep": False,
-    "serve": False,
-    "serve_lanes": 4,
-    "serve_retries": 2,
-    "serve_timeout": None,
-    "chain_rounds": 0,
-    "result_store": None,
     "serve_port": None,
     "serve_token_file": None,
 }
 
-#: Unported settings that change what a resumed run would do; the others
-#: (the serve tuning) are restored and have no effect in a
-#: single-process run.
-_REFUSED = (
-    "mesh", "serve", "chain_rounds", "shard_sweep", "result_store",
-    "serve_port",
-)
+#: Unported settings that change what a resumed run would do (the token
+#: file is only read with a serve port).
+_REFUSED = ("mesh", "shard_sweep", "serve_port")
 
 
 def _err(msg: str) -> int:
@@ -316,6 +375,14 @@ def _resume_config(args) -> Optional[int]:
             f"Error: journal in {args.resume_run} lacks the recorded "
             f"setting {e}; it was written by an incompatible build — "
             "re-run the search instead of resuming."
+        )
+    if args.serve:
+        # The run being resumed was a serve run: its resume is per job.
+        return _err(
+            f"Error: journal in {args.resume_run} records a "
+            "serve-mode run; re-run --serve with the same inputs "
+            "and --output-dir instead of --resume-run (each job "
+            "resumes bit-identically from its per-job journal)."
         )
     refused = [(k, getattr(args, k)) for k in _REFUSED
                if getattr(args, k) != UNPORTED_KEYS[k]]
@@ -365,6 +432,11 @@ def _probe_device(name: str) -> Optional[str]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    for key, value in sorted(vars(args).items()):
+        if key.startswith("unported_") and value not in (None, False):
+            flag = "--" + key[len("unported_"):].replace("_", "-")
+            return _err(f"Error: {flag} is not ported yet; run it with "
+                        "python -m sboxgates_tpu.")
     # Telemetry files (heartbeat, metrics.json, flight dumps) live with the
     # journal in an explicit --output-dir (--resume-run implies one); the
     # cwd default must not sprout them wherever the tool runs.
@@ -373,8 +445,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     # journal records them.
     for key, value in UNPORTED_KEYS.items():
         setattr(args, key, value)
+    # The result store: SBG_RESULT_STORE applies only when the flag is
+    # absent (an explicit empty string disables it); a resume restores the
+    # journaled value instead.
+    if args.result_store is None and args.resume_run is None:
+        args.result_store = os.environ.get("SBG_RESULT_STORE") or None
+    elif args.result_store == "":
+        args.result_store = None
     args.journal = None
     if args.resume_run is not None:
+        if args.serve:
+            return _err(
+                "Error: --serve cannot be combined with --resume-run; a "
+                "killed serve run resumes by re-running --serve with "
+                "the same inputs and --output-dir (each job continues "
+                "from its per-job journal)."
+            )
         rc = _resume_config(args)
         if rc is not None:
             return rc
@@ -413,6 +499,71 @@ def main(argv: Optional[List[str]] = None) -> int:
             "--fleet and --serial-jobs are incompatible: the fleet's "
             "whole point is merging the jobs' dispatches."
         )
+    if args.result_store is not None and (
+        args.convert_c or args.convert_dot
+    ):
+        return _err(
+            "--result-store has no effect on -c/-d conversion; drop it."
+        )
+    if args.result_store is not None and args.serve and (
+        args.output_dir is None
+    ):
+        return _err(
+            "--result-store on a serve run requires an explicit "
+            "--output-dir: store hits land as per-job artifacts under "
+            "DIR/<job-id>/."
+        )
+    if args.serve:
+        # The orchestrator owns scheduling and the execution shape.
+        for flag, name in (
+            (args.convert_c, "-c"),
+            (args.convert_dot, "-d"),
+            (args.graph is not None, "-g"),
+            (args.permute_sweep, "--permute-sweep"),
+            (args.fleet, "--fleet"),
+            (args.batch_iterations, "--batch-iterations"),
+            (args.serial_jobs, "--serial-jobs"),
+        ):
+            if flag:
+                return _err(
+                    f"--serve cannot be combined with {name}; the serve "
+                    "orchestrator owns job scheduling over the shared "
+                    "warm context."
+                )
+        if args.output_dir is None:
+            return _err(
+                "--serve requires an explicit --output-dir: per-job "
+                "journals, checkpoints, and telemetry artifacts live "
+                "under DIR/<job-id>/."
+            )
+        if args.serve_lanes < 1:
+            return _err(f"Bad serve lanes value: {args.serve_lanes}")
+        if args.serve_retries < 0:
+            return _err(f"Bad serve retries value: {args.serve_retries}")
+        if args.serve_timeout is not None and args.serve_timeout <= 0:
+            return _err(f"Bad serve timeout value: {args.serve_timeout}")
+    if args.serve_no_merge and not args.serve:
+        return _err("--serve-no-merge requires --serve.")
+    if args.chain_rounds < 0:
+        return _err(f"Bad chain rounds value: {args.chain_rounds}")
+    if args.chain_rounds > 0:
+        # The chained driver replaces the beam search: never silently
+        # ignored by a mode it does not drive.
+        if not args.lut:
+            return _err(
+                "--chain-rounds requires -l/--lut: the round kernel "
+                "appends LUT gates."
+            )
+        if args.iterations != 1:
+            return _err(
+                "--chain-rounds requires --iterations 1: the chain is "
+                "one greedy pass, not a restarted beam."
+            )
+        if args.single_output != -1:
+            return _err(
+                "--chain-rounds drives the all-outputs graph search; "
+                "it cannot be combined with -o."
+            )
     if args.candidate_order not in ("lex", "spectral"):
         return _err(f"Bad candidate order value: {args.candidate_order}")
     if args.fleet_candidates < 1:
@@ -511,11 +662,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         parallel_mux=False if args.serial_mux else None,
         fleet=args.fleet,
         fleet_max_wave=args.fleet_max_wave,
+        chain_rounds=args.chain_rounds,
+        result_store=args.result_store,
     )
     try:
         ctx = SearchContext(opt)
     except RuntimeError as e:
         return _err(f"Error: {e}")
+    if ctx.result_store is not None:
+        note = " (read-only)" if ctx.result_store.readonly else ""
+        print(f"Result store: {args.result_store}{note}")
 
     # The journal's recorded configuration (the JAX CLI's): also the
     # heartbeat start line's config.
@@ -553,6 +709,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 bf.GATE_NAMES[f.fun] + " " for f in ctx.avail_not))
             print("Generated 3-input gates: " + "".join(
                 "%02x " % f.fun for f in ctx.avail_3))
+        if args.serve:
+            return _run_serve(ctx, args, journal, tele)
         if sweep:
             return _run_sweep(ctx, args, sbox, num_inputs, journal, tele)
 
@@ -591,6 +749,41 @@ def _finish(ctx, args, tele) -> int:
         print("")
         print(ctx.prof.report(ctx.stats))
     return 0
+
+
+def _run_serve(ctx, args, journal, tele) -> int:
+    """``--serve``: every input file is one job of the queue of
+    :mod:`.search.serve` (per-job journals and files under
+    ``DIR/<job-id>/``); the run journal records the configuration and the
+    final counts.  SIGTERM drains the queue before the run's own dump."""
+    from .resilience.deadline import DeadlineConfig
+    from .search.serve import ServeJob, ServeOrchestrator
+
+    orch = ServeOrchestrator(
+        ctx, args.output_dir, lanes=args.serve_lanes,
+        deadline=DeadlineConfig(
+            budget_s=args.serve_timeout or 0.0, retries=args.serve_retries,
+        ),
+        merge=False if args.serve_no_merge else None,
+    )
+    tele.add_provider("serve", orch.status_view)
+    tele.drain_hooks.append(lambda: orch.drain(timeout_s=10.0))
+    for i, path in enumerate(args.input):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        orch.submit(ServeJob(
+            job_id=f"job{i:02d}-{stem}", sbox_path=path,
+            output=args.single_output, permute=args.permute,
+        ))
+    orch.start()
+    view = orch.run_until_idle()
+    orch.stop()
+    counts = view["counts"]
+    print("serve: " + "  ".join(
+        f"{k}={counts.get(k, 0)}" for k in ("done", "quarantined", "preempted")
+    ))
+    if journal is not None and journal.writable:
+        journal.append("run_done", beam=[], serve=counts)
+    return _finish(ctx, args, tele)
 
 
 def _run_sweep(ctx, args, sbox, num_inputs, journal, tele) -> int:
@@ -652,6 +845,8 @@ class _Telemetry:
         self.args = args
         self.tele_dir = tele_dir
         self._done = False
+        #: Run on SIGTERM before the run's own dump (the serve drain).
+        self.drain_hooks: List = []
         self.status_server = None
         if ctx.opt.status_port is not None:
             self.status_server = StatusServer(
@@ -693,6 +888,15 @@ class _Telemetry:
         name = signal.Signals(signum).name
 
         def work() -> None:
+            for hook in list(self.drain_hooks):
+                try:
+                    hook()
+                except Exception as e:
+                    import logging
+
+                    logging.getLogger(__name__).warning(
+                        "signal drain hook failed: %r", e
+                    )
             path = _flight.flight_dump(
                 f"signal:{name}", registry=self.ctx.stats,
                 extra={"signal": name},
@@ -706,6 +910,14 @@ class _Telemetry:
         t.join(self.SIGNAL_DUMP_JOIN_S)
         signal.signal(signum, signal.SIG_DFL)
         os.kill(os.getpid(), signum)
+
+    def add_provider(self, name: str, provider) -> None:
+        """One extra section of every ``/status`` snapshot and heartbeat
+        line (the serve queue view)."""
+        if self.status_server is not None:
+            self.status_server.add_provider(name, provider)
+        if self.heartbeat is not None:
+            self.heartbeat.add_provider(name, provider)
 
     def teardown(self) -> None:
         """Restores the signal handler, stops ``/status``, reads the launch
@@ -728,6 +940,9 @@ class _Telemetry:
         if self.status_server is not None:
             self.status_server.shutdown()
         self.ctx.close_telemetry()
+        if self.ctx.result_store is not None:
+            # Every queued publish lands before the run ends.
+            self.ctx.result_store.close()
         if self.heartbeat is not None:
             self.heartbeat.stop()
         if self.args.trace is not None:

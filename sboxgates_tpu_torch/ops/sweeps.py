@@ -1654,3 +1654,225 @@ def feasible_stream_wide(
     lo, hi = cstart & M32, (cstart >> 32) & M32
     verdict = np.asarray([int(found), lo, hi], np.uint32).view(np.int32)
     return (verdict, *last)
+
+
+# -------------------------------------------------------------------------
+# Fused multi-round search driver
+#
+# The JAX package's round_driver keeps a chain of greedy rounds on the
+# device in one lax.while_loop and syncs once per window.  Here the window
+# is stepped from the host, round by round, in lockstep over the lanes: a
+# round's head (match scan) comes back in one sync for every lane, the
+# lanes that miss it run the 3-LUT stream and then the 5-LUT stream (K3 on
+# the card) with one sync per chunk round, and a hit's new gate rows are
+# computed on the device from its operand rows and written into the
+# lane's table array there.  The verdicts and the hit journal are the JAX
+# driver's, row for row.
+# -------------------------------------------------------------------------
+
+
+def _eval_lut_words(func: int, ta, tb, tc):
+    """Device twin of :func:`..core.ttable.eval_lut` for int32 word rows:
+    bit k of ``func`` (a host int) is the output for inputs
+    k = A<<2 | B<<1 | C."""
+    out = torch.zeros_like(ta)
+    for j in range(8):
+        if (func >> j) & 1:
+            out = out | ((ta if (j >> 2) & 1 else ~ta)
+                         & (tb if (j >> 1) & 1 else ~tb)
+                         & (tc if j & 1 else ~tc))
+    return out
+
+
+def _lut5_inner_function(sigma: int, fo: int, r1: int, r0: int, dc: int) -> int:
+    """The inner-LUT byte of a 5-LUT hit: group j = 4*o + m holds the cells
+    where the outer output is o and the (d, e) pattern is m; a group with a
+    required 1 sets its bit, a group with only required 0s clears it, and
+    the don't-care byte ``dc`` fills the rest (the JAX driver's grouping)."""
+    _, w_tab, m_tab = lut5_split_tables()
+    w = int(w_tab[sigma, fo])
+    r1, r0 = r1 & M32, r0 & M32
+    func = 0
+    for j in range(8):
+        o, m = j >> 2, j & 3
+        cells = int(m_tab[sigma, m]) & (w if o else ~w & M32)
+        if r1 & cells:
+            bit = 1
+        elif (r1 | r0) & cells:
+            bit = 0
+        else:
+            bit = (dc >> j) & 1
+        func |= bit << j
+    return func
+
+
+def round_driver_lanes(rows, *, chunk3, chunk5, has5, max_rounds,
+                       solve_rows=1024):
+    """Lane form of :func:`round_driver`; rows (tables, binom, g0, targets,
+    masks, excl, seeds, dc_draws, n_rounds, total5_cap, splits, w_tab,
+    m_tab), the split tables and the cap shared.  Each lane runs up to its
+    ``n_rounds`` rounds; a lane that misses (or overflows the head solver)
+    freezes there while the others go on.  Host syncs: one per round for
+    the heads of every running lane, and one per chunk round of the 3-LUT
+    and 5-LUT streams of the lanes that reach them."""
+    n = len(rows)
+    tabs = _stack(rows, 0).clone()                   # [L, B, W]
+    dev = tabs.device
+    bsz = tabs.shape[1]
+    binom = rows[0][1]
+    targets, masks = _stack(rows, 3), _stack(rows, 4)
+    excl = rows[0][5][None].expand(n, -1)
+    seeds = [np.asarray(r[6]).astype(np.int64) for r in rows]
+    dcs = [np.asarray(r[7]).astype(np.int64) for r in rows]
+    cap = int(rows[0][9])
+    w_tab, m_tab = rows[0][11], rows[0][12]
+    splits = np.asarray(lut5_split_tables()[0])
+    bt = binom_table()
+    g = [int(r[2]) for r in rows]
+    hits = np.zeros((n, max_rounds + 1, 8), np.int32)
+    done = [0] * n
+    live = [j for j in range(n) if int(rows[j][8]) > 0]
+    merged = n > 1
+    ar = torch.arange(bsz, device=dev)
+    r = 0
+    while live:
+        sd = [_wrap32(int(seeds[j][r])) for j in live]
+        up = upload([live, [g[j] for j in live]], _I64, dev)
+        tl, gl = tabs[up[0]], up[1]
+        tgt, msk = targets[up[0], r], masks[up[0], r]
+        valid = ar[None, :] < gl[:, None]
+        eq = eq_mask(tl, tgt[:, None], msk[:, None]) & valid
+        neq = eq_mask(~tl, tgt[:, None], msk[:, None]) & valid
+        sprio = _priority_lanes(bsz, sd, det_newest=True, device=dev)
+        head = torch.stack([
+            eq.any(dim=1).long(), neq.any(dim=1).long(),
+            torch.argmax(torch.where(eq, sprio, 0), dim=1),
+            torch.argmax(torch.where(neq, sprio, 0), dim=1),
+        ], dim=1).tolist()
+        row = {}
+        rest = []
+        for j, s, (direct, inv, dbest, ibest) in zip(live, sd, head):
+            if direct:
+                row[j] = (1, dbest)
+            elif inv:
+                row[j] = (2, ibest)
+                tabs[j, g[j]] = ~tabs[j, ibest]
+                g[j] += 1
+            else:
+                rest.append(j)
+        if rest:
+            ln = _Lanes(tabs, g, targets[:, r], masks[:, r], excl, binom,
+                        merged)
+            l3 = _lut3_lanes(
+                ln, rest, [0] * len(rest),
+                [int(bt[g[j], 3]) for j in rest],
+                [_wrap32(int(seeds[j][r])) ^ 0x55D3 for j in rest], chunk3)
+            need5 = []
+            for j, (f3, rank3, r1c, r0c, ex3) in zip(rest, l3):
+                if not f3:
+                    if has5:
+                        need5.append((j, ex3))
+                    else:
+                        row[j] = (0, 0, 0, 0, 0, ex3)
+                    continue
+                dc = int(dcs[j][r])
+                func = (r1c | (dc & ~(r1c | r0c))) & 0xFF
+                a, b, c = (int(x) for x in
+                           combinatorics.unrank_combination(rank3, g[j], 3))
+                tabs[j, g[j]] = _eval_lut_words(func, tabs[j, a], tabs[j, b],
+                                                tabs[j, c])
+                g[j] += 1
+                row[j] = (3, rank3, func, 0, 0, ex3)
+            if need5:
+                js = [j for j, _ in need5]
+                totals = [int(bt[g[j], 5]) if g[j] >= 5 and int(bt[g[j], 5]) < cap
+                          else 0 for j in js]
+                l5 = _lut5_lanes(
+                    ln, js, [0] * len(js), totals, w_tab, m_tab,
+                    [_wrap32(int(seeds[j][r])) ^ 0x1BF5 for j in js], chunk5,
+                    solve_rows)
+                for (j, ex3), (status, rank5, sigma, fo, sr1, sr0, cst,
+                               ex5) in zip(need5, l5):
+                    if status != 1:
+                        row[j] = ((5, cst) if status == 2 else (0, 0)) + (
+                            0, 0, 0, ex3, ex5)
+                        continue
+                    combo = combinatorics.unrank_combination(rank5, g[j], 5)
+                    ga, gb, gc, gd, ge = (int(combo[p]) for p in splits[sigma])
+                    fi = _lut5_inner_function(sigma, fo, sr1, sr0,
+                                              int(dcs[j][r]))
+                    outer = _eval_lut_words(fo, tabs[j, ga], tabs[j, gb],
+                                            tabs[j, gc])
+                    tabs[j, g[j]] = outer
+                    tabs[j, g[j] + 1] = _eval_lut_words(fi, outer, tabs[j, gd],
+                                                        tabs[j, ge])
+                    g[j] += 2
+                    row[j] = (4, rank5, sigma, fo, fi, ex3, ex5)
+        nxt = []
+        for j in live:
+            v = row[j]
+            hits[j, r, :len(v)] = v
+            if v[0] in (0, 5):
+                continue
+            done[j] = r + 1
+            if r + 1 < int(rows[j][8]):
+                nxt.append(j)
+        live = nxt
+        r += 1
+    for j in range(n):
+        hits[j, max_rounds, 0], hits[j, max_rounds, 1] = done[j], g[j]
+    return list(hits)
+
+
+def round_driver(
+    tables, binom, g0, targets, masks, excl, seeds, dc_draws, n_rounds,
+    total5_cap, splits, w_tab, m_tab,
+    *, chunk3, chunk5, has5, max_rounds, solve_rows=1024,
+):
+    """Up to ``n_rounds`` greedy search rounds in one call (the JAX
+    package's ``round_driver``).  Round r tries, against the current table
+    array: (1) an existing gate matching targets[r] under masks[r] (newest
+    first, the :func:`match_scan` order), (2) the complement of one
+    (appends a NOT row), (3) the whole-space 3-LUT stream (appends one LUT
+    row), and (4, with ``has5``) the 5-LUT stream when C(g, 5) is below
+    ``total5_cap`` (appends the outer and inner LUT rows).  A miss, or a
+    head-solver overflow, ends the window there: the host runs that round.
+
+    tables: [B, W] int32 words zero-padded to the gate bucket (the caller
+    guarantees g0 + 2 * n_rounds <= B); targets/masks: [max_rounds, W];
+    seeds/dc_draws: [max_rounds] host int32, drawn in one block per chain
+    segment.  Returns int32 [max_rounds + 1, 8]: row r = [kind, x0, x1,
+    x2, x3, ex3, ex5, 0] with kind 0 miss, 1 existing gate (x0 = gate),
+    2 complement (x0 = gate), 3 3-LUT (x0 = rank, x1 = function), 4 5-LUT
+    (x0 = rank, x1 = sigma, x2 = outer, x3 = inner function), 5 solver
+    overflow (x0 = chunk start); ex3/ex5 the ranks the round's streams
+    examined.  The last row is [rounds_done, g_final, 0, ...]."""
+    return round_driver_lanes(
+        [(tables, binom, g0, targets, masks, excl, seeds, dc_draws, n_rounds,
+          total5_cap, splits, w_tab, m_tab)],
+        chunk3=chunk3, chunk5=chunk5, has5=has5, max_rounds=max_rounds,
+        solve_rows=solve_rows,
+    )[0]
+
+
+def fleet_round_driver(
+    tables, binom, g0s, targets, masks, excl, seeds, dc_draws, n_rounds,
+    total5_cap, splits, w_tab, m_tab,
+    *, chunk3, chunk5, has5, max_rounds, solve_rows=1024,
+):
+    """Stacked form of :func:`round_driver` (the JAX package's
+    ``fleet_round_driver``): the jobs axis leads tables [L, B, W], g0s and
+    n_rounds [L], targets and masks [L, max_rounds, W], seeds and dc_draws
+    [L, max_rounds]; the other operands are shared.  A lane with
+    ``n_rounds`` 0 does no work.  Returns int32 [L, max_rounds + 1, 8],
+    lane by lane the one-row call's journal."""
+    rows = [
+        (tables[i], binom, int(g0s[i]), targets[i], masks[i], excl,
+         seeds[i], dc_draws[i], int(n_rounds[i]), total5_cap, splits, w_tab,
+         m_tab)
+        for i in range(tables.shape[0])
+    ]
+    return np.stack(round_driver_lanes(
+        rows, chunk3=chunk3, chunk5=chunk5, has5=has5, max_rounds=max_rounds,
+        solve_rows=solve_rows,
+    ))

@@ -20,6 +20,14 @@ search.  Sites the port fires:
 ``dispatch.sweep``        issuing/resolving one guarded device sweep
 ``native.devcb``          servicing one native-engine device-work request
 ``order.score``           issuing one spectral candidate-order scoring pass
+``serve.admit``           admitting one job into the serve queue
+``serve.preempt``         a serve job's journal-boundary control point
+``serve.requeue``         requeuing a preempted or failed serve job
+``serve.drain``           entering a serve drain
+``serve.wave``            a lane entering its merged serve wave
+``store.get``             entering a result-store lookup
+``store.put``             before a result-store entry write
+``store.index``           before a result-store index append
 ========================  =====================================================
 
 Arming — ``SBG_FAULTS`` (read at first use) or :func:`arm`::
@@ -34,10 +42,16 @@ exactly the Nth hit, ``N+`` on the Nth and every later one; omitted means
 ``1+``.  Hit counting is per process and thread-safe; with a fixed seed
 the same spec kills the same point every run.
 
-A site name may carry a qualifier, in the JAX package's grammar:
-``@rank:N``, ``@job:ID`` or ``@tenant:NAME``.  The port runs one process
-with no jobs or tenants, so only ``@rank:0`` fires here (with a hit counter
-of its own); a site qualified otherwise parses and never fires.
+A site name may carry a qualifier, in the JAX package's grammar, and then
+fires only where it matches (with a hit counter of its own):
+
+- ``@rank:N``: the port runs one process, rank 0, so only ``@rank:0``
+  fires;
+- ``@job:ID``: on a thread running serve job ``ID`` (:func:`set_job`, a
+  per-thread pin the serve orchestrator sets around each job attempt and
+  store consult; ``SBG_FAULT_JOB`` when the thread has none);
+- ``@tenant:NAME``: on a thread serving tenant ``NAME`` (:func:`set_tenant`;
+  ``SBG_FAULT_TENANT`` when the thread has none).
 """
 
 from __future__ import annotations
@@ -64,6 +78,14 @@ KNOWN_SITES = (
     "dispatch.sweep",
     "native.devcb",
     "order.score",
+    "serve.admit",
+    "serve.preempt",
+    "serve.requeue",
+    "serve.drain",
+    "serve.wave",
+    "store.get",
+    "store.put",
+    "store.index",
 )
 
 
@@ -90,6 +112,47 @@ _lock = threading.Lock()
 _specs: Dict[str, _Spec] = {}
 _hits: Dict[str, int] = {}
 _env_loaded = False
+#: Per-thread job and tenant pins (set_job, set_tenant): the serve
+#: orchestrator runs many jobs in one process, and a qualified fault fires
+#: only on the thread running that job or serving that tenant.
+_job_local = threading.local()
+_tenant_local = threading.local()
+#: Whether any armed site is job- or tenant-qualified (recomputed under
+#: _lock at every change of _specs), so the unarmed path reads two bools.
+_job_targeted = False
+_tenant_targeted = False
+
+
+def _note_specs_changed() -> None:
+    """Caller holds _lock: refresh the job and tenant targeting flags."""
+    global _job_targeted, _tenant_targeted
+    _job_targeted = any("@job:" in s for s in _specs)
+    _tenant_targeted = any("@tenant:" in s for s in _specs)
+
+
+def set_job(job_id: Optional[str]) -> None:
+    """Pins the calling thread's serve job for ``@job:ID`` sites; None
+    clears it."""
+    _job_local.job = None if job_id is None else str(job_id)
+
+
+def current_job() -> Optional[str]:
+    """The calling thread's :func:`set_job` pin (no environment fallback):
+    carried onto work handed to another thread, as the result store's
+    writer does."""
+    return getattr(_job_local, "job", None)
+
+
+def set_tenant(tenant: Optional[str]) -> None:
+    """Pins the calling thread's tenant for ``@tenant:NAME`` sites; None
+    clears it."""
+    _tenant_local.tenant = None if tenant is None else str(tenant)
+
+
+def current_tenant() -> Optional[str]:
+    """The calling thread's :func:`set_tenant` pin (no environment
+    fallback)."""
+    return getattr(_tenant_local, "tenant", None)
 
 
 def parse_spec(text: str) -> Dict[str, _Spec]:
@@ -141,6 +204,7 @@ def _load_env() -> None:
     text = os.environ.get("SBG_FAULTS", "")
     if text:
         _specs.update(parse_spec(text))
+    _note_specs_changed()
 
 
 def arm(site: str, action: str, when: str = "1+") -> None:
@@ -149,6 +213,7 @@ def arm(site: str, action: str, when: str = "1+") -> None:
     with _lock:
         _load_env()
         _specs.update(spec)
+        _note_specs_changed()
 
 
 def disarm(site: Optional[str] = None) -> None:
@@ -163,6 +228,7 @@ def disarm(site: Optional[str] = None) -> None:
         else:
             _specs.pop(site, None)
             _hits.pop(site, None)
+        _note_specs_changed()
 
 
 def hit_count(site: str) -> int:
@@ -177,8 +243,18 @@ def fault_point(site: str) -> None:
     if not _env_loaded and not _specs:
         with _lock:
             _load_env()
-    # This process is rank 0: the only qualified name that can fire here.
-    names = (site, f"{site}@rank:0")
+    # This process is rank 0; the job and tenant names are this thread's
+    # pins (or the environment's), looked up only when some armed site
+    # carries that kind of qualifier.
+    names = [site, f"{site}@rank:0"]
+    if _job_targeted:
+        job = current_job() or os.environ.get("SBG_FAULT_JOB")
+        if job is not None:
+            names.append(f"{site}@job:{job}")
+    if _tenant_targeted:
+        tenant = current_tenant() or os.environ.get("SBG_FAULT_TENANT")
+        if tenant is not None:
+            names.append(f"{site}@tenant:{tenant}")
     if all(_specs.get(n) is None for n in names):
         return
     spec = None

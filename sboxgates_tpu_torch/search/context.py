@@ -141,6 +141,15 @@ class Options:
     fleet: bool = False
     # Jobs per fleet wave; the per-job seeds are drawn one wave at a time.
     fleet_max_wave: int = 256
+    # --chain-rounds: the all-outputs LUT search as one greedy chain of
+    # rounds over one growing graph (search/rounds.py), up to this many
+    # rounds per device call; 0 = the beam search.  Another driver, so
+    # other circuits; the same circuits for every value above 0.
+    chain_rounds: int = 0
+    # --result-store: the content-addressed result store's directory
+    # (store/): finished searches publish there, serve admission consults
+    # it.  Never shapes the draw stream of a search that runs.  None = off.
+    result_store: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -329,6 +338,14 @@ class SearchContext:
 
             self.rdv = Rendezvous(1, timer=self.launch_timer)
         self._engine_mux_threads = None
+        # The result store (Options.result_store), shared by reference with
+        # every view of this context.  Deferred import: store/ imports no
+        # search module.
+        self.result_store = None
+        if opt.result_store:
+            from ..store import ResultStore
+
+            self.result_store = ResultStore(opt.result_store, stats=self.stats)
 
     # -- helpers ----------------------------------------------------------
 
@@ -438,7 +455,7 @@ class SearchContext:
         if self.rdv is not None and self.rdv.live > 1:
             return self.rdv.submit(
                 _warmup.warm_key(name, statics, args), name, statics, args,
-                g=g,
+                g=g, label=getattr(self, "dispatch_label", None),
             )
         return self.kernel_call(name, statics, args, g=g)
 
@@ -464,7 +481,7 @@ class SearchContext:
         if self._merge_streams():
             return self.rdv.submit(
                 _warmup.warm_key(name, statics, args), name, statics, args,
-                g=g,
+                g=g, label=getattr(self, "dispatch_label", None),
             )
         return self.kernel_call(name, statics, args, g=g)
 

@@ -67,6 +67,33 @@ def make_targets(sbox: np.ndarray) -> List[np.ndarray]:
     return [tt.target_table(sbox, bit) for bit in range(8)]
 
 
+def _store_publish_one(ctx, results, target, mask, output: int) -> None:
+    """Publishes the best finished circuit of the one-output driver
+    (results are best last) to the result store, keyed canonically, with
+    the LUT sub-tables in LUT mode.  Asynchronous and best-effort: the
+    store never touches the search's result."""
+    store = getattr(ctx, "result_store", None)
+    if store is None or not results:
+        return
+    store.put_state(
+        results[-1], target, mask, ctx.opt.metric, output=output,
+        sub_tables=ctx.opt.lut_graph, meta={"output_bit": output},
+    )
+
+
+def _store_publish_graph(ctx, states, targets, num_outputs, mask) -> None:
+    """Publishes the all-outputs drivers' final state under its exact
+    multi-output key, plus one canonical single-output entry per bound
+    output (its cone) and the LUT sub-tables."""
+    store = getattr(ctx, "result_store", None)
+    if store is None or not states:
+        return
+    store.put_multi(
+        states[0], [targets[o] for o in range(num_outputs)], mask,
+        ctx.opt.metric, sub_tables=ctx.opt.lut_graph,
+    )
+
+
 def sbox_num_outputs(targets) -> int:
     for i in range(7, -1, -1):
         if (targets[i] != 0).any():
@@ -97,14 +124,16 @@ def generate_graph_one_output(
     independent restarts, no budget ratchet between them)."""
     opt = ctx.opt
     log(f"Generating graphs for output {output}...")
+    mask = tt.mask_table(st.num_inputs)
     if (opt.batch_restarts or opt.fleet) and opt.iterations > 1:
         from .batched import generate_graph_one_output_batched
 
-        return generate_graph_one_output_batched(
+        results = generate_graph_one_output_batched(
             ctx, st, targets, output, save_dir=save_dir, log=log,
             journal=journal,
         )
-    mask = tt.mask_table(st.num_inputs)
+        _store_publish_one(ctx, results, targets[output], mask, output)
+        return results
     results = []
     start_it = 0
     if journal is not None:
@@ -147,6 +176,7 @@ def generate_graph_one_output(
             )
     if journal is not None:
         journal.append("run_done", beam=[state_filename(s) for s in results])
+    _store_publish_one(ctx, results, targets[output], mask, output)
     return results
 
 
@@ -174,6 +204,14 @@ def generate_graph(
     opt = ctx.opt
     num_outputs = sbox_num_outputs(targets)
     mask = tt.mask_table(st.num_inputs)
+    if opt.chain_rounds > 0 and opt.iterations == 1 and opt.lut_graph:
+        # --chain-rounds: the missing outputs as one greedy chain of rounds
+        # over one growing graph (another driver than the beam search, so
+        # opt-in; the same circuit for every chain_rounds above 0).
+        return _generate_graph_chained(
+            ctx, st, targets, num_outputs, mask, save_dir=save_dir,
+            log=log, journal=journal,
+        )
     start_states = [st]
     rnd = 0
     if journal is not None:
@@ -257,7 +295,43 @@ def generate_graph(
         _round_checkpoint(ctx, journal, rnd, beam.states, save_dir)
     if journal is not None:
         journal.append("run_done", beam=[state_filename(s) for s in start_states])
+    _store_publish_graph(ctx, start_states, targets, num_outputs, mask)
     return start_states
+
+
+def _generate_graph_chained(
+    ctx, st, targets, num_outputs: int, mask,
+    save_dir: Optional[str] = ".",
+    log: Callable[[str], None] = print,
+    journal=None,
+) -> List[State]:
+    """The ``Options.chain_rounds`` driver behind :func:`generate_graph`:
+    every missing output, in output order, as one greedy chain of rounds
+    (:func:`.rounds.run_round_chain`) over one growing graph; a round the
+    round driver cannot finish runs the full recursive search for that
+    output.  Returns the single final state."""
+    from .rounds import run_round_chain
+
+    missing = [o for o in range(num_outputs) if st.outputs[o] == NO_GATE]
+    log(
+        f"Chaining {len(missing)} output"
+        f"{'' if len(missing) == 1 else 's'} "
+        f"({ctx.opt.chain_rounds} rounds/dispatch)..."
+    )
+    rounds = [(targets[o], mask) for o in missing]
+    outs = run_round_chain(
+        ctx, st, rounds, rounds_per_dispatch=ctx.opt.chain_rounds,
+        journal=journal,
+    )
+    for o, gid in zip(missing, outs):
+        st.outputs[o] = gid
+    log(f"Chained graph complete: {st.num_gates - st.num_inputs} gates.")
+    if save_dir is not None:
+        save_state(st, save_dir)
+    if journal is not None:
+        journal.append("run_done", beam=[state_filename(st)])
+    _store_publish_graph(ctx, [st], targets, num_outputs, mask)
+    return [st]
 
 
 def _round_checkpoint(ctx, journal, rnd: int, beam_states, save_dir) -> None:

@@ -60,7 +60,37 @@ KERNELS: Dict[str, KernelDef] = {
         KernelDef("pivot_pair_cells", ()),
         KernelDef("lut5_solve", ()),
         KernelDef("lut7_solve", ()),
+        # The chained rounds (search/rounds.py): a window of greedy rounds
+        # in one call (merged windows run its lane form), and the stacked
+        # form a wave of chains calls directly (it never merges).
+        KernelDef("round_driver",
+                  ("chunk3", "chunk5", "has5", "max_rounds", "solve_rows")),
+        KernelDef("fleet_round_driver",
+                  ("chunk3", "chunk5", "has5", "max_rounds", "solve_rows")),
     )
+}
+
+#: Operands a merged call shares across its lanes, per kernel (the JAX
+#: package's table): the JAX package maps them ``in_axes=None`` where the
+#: others gain the jobs axis.  The port's lane forms take every row's
+#: operands and read the shared ones from the first row, so this table
+#: documents which positions must agree across a merged group.
+FLEET_SHARED: Dict[str, Tuple[int, ...]] = {
+    "gate_step_stream": (2, 4, 8, 10, 11, 12),
+    "lut_step_stream": (2, 4, 11, 12, 13),
+    "lut7_step_stream": (1, 7, 8),
+    "lut7_solve": (2, 3),
+    "lut3_stream": (1, 5),
+    "lut5_stream": (1, 8, 9),
+    "feasible_stream": (1,),
+    "lut5_solve": (2, 3),
+    "lut5_pivot_stream": (9, 10),
+    "lut5_pivot_tile": (),
+    "pivot_pair_cells": (),
+    # A round-chain window: binomial table, the empty exclusion array, the
+    # 5-LUT space cap and the split tables; tables, g, targets, masks,
+    # seeds, fill bytes and the round count are per lane.
+    "round_driver": (1, 5, 9, 10, 11, 12),
 }
 
 

@@ -51,6 +51,7 @@ class Heartbeat:
         resume: bool = False,
         run_config: Optional[dict] = None,
         extra: Optional[dict] = None,
+        incident_hook: bool = True,
     ):
         self.registry = registry
         self.directory = directory
@@ -60,6 +61,10 @@ class Heartbeat:
         #: Extra per-line sections: name -> zero-argument provider, read at
         #: every emit.  A failing provider becomes an error note.
         self.extra = dict(extra or {})
+        #: Per-job serve heartbeats leave the flight recorder's incident
+        #: hook out: the recorder is process-wide, and one job's incident
+        #: must not write lines into every other job's telemetry.jsonl.
+        self.incident_hook = bool(incident_hook)
         self._seq = 0
         self._t0 = time.monotonic()
         self._stop = threading.Event()
@@ -72,6 +77,11 @@ class Heartbeat:
             # kill here leaves no torn file for a resume to parse.
             durable_write_text(self.path, "")
 
+    def add_provider(self, name: str, provider) -> None:
+        """Registers one extra per-line section after construction (the
+        serve CLI wires the orchestrator's queue view here)."""
+        self.extra[name] = provider
+
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "Heartbeat":
@@ -80,7 +90,8 @@ class Heartbeat:
                 target=self._work, name="sbg-heartbeat", daemon=True
             )
             self._thread.start()
-        _flight.flight_recorder().on_dump(self._on_incident)
+        if self.incident_hook:
+            _flight.flight_recorder().on_dump(self._on_incident)
         self.emit(kind="start")
         return self
 

@@ -66,6 +66,15 @@ METRICS: Dict[str, MetricDef] = {
     "circuit_breaker_trips": MetricDef(COUNTER, "events", "device circuit-breaker flips"),
     "flight_dumps": MetricDef(COUNTER, "dumps", "flight-recorder dumps written"),
     "journal_appends": MetricDef(COUNTER, "records", "fsync'd journal records appended"),
+    # chained rounds (search/rounds.py)
+    "round_driver_rounds": MetricDef(
+        COUNTER, "rounds",
+        "search rounds completed on the device by the fused round driver",
+    ),
+    "round_driver_fallbacks": MetricDef(
+        COUNTER, "rounds",
+        "chain rounds the fused driver handed to the host recursion",
+    ),
     # engine (native) activity
     "engine_nodes": MetricDef(COUNTER, "nodes", "search nodes completed in the native engine"),
     "python_nodes": MetricDef(COUNTER, "nodes", "search nodes completed by the Python recursion"),
@@ -89,6 +98,45 @@ METRICS: Dict[str, MetricDef] = {
     "job_time_to_first_hit_s": MetricDef(
         HISTOGRAM, "s",
         "per-job wall time from job start to its first completed circuit",
+    ),
+    # serve orchestrator (search/serve.py)
+    "serve_jobs_admitted": MetricDef(
+        COUNTER, "jobs", "jobs admitted into the serve queue"
+    ),
+    "serve_preemptions": MetricDef(
+        COUNTER, "events",
+        "serve jobs preempted at a journal boundary (snapshot + requeue)",
+    ),
+    "serve_quarantined": MetricDef(
+        COUNTER, "jobs",
+        "poison jobs quarantined after exhausting their retry schedule",
+    ),
+    "serve_merged_dispatches": MetricDef(
+        COUNTER, "dispatches",
+        "merged fleet dispatches issued by serve waves (one lane-form call "
+        "serving a whole same-bucket wave's sweeps)",
+    ),
+    # result store (store/)
+    "store_hits": MetricDef(
+        COUNTER, "lookups",
+        "queries answered with a stored, re-verified circuit (no device "
+        "dispatch)",
+    ),
+    "store_misses": MetricDef(
+        COUNTER, "lookups",
+        "queries with no usable store entry (searched normally)",
+    ),
+    "store_partial_hits": MetricDef(
+        COUNTER, "lookups",
+        "queries seeded from a stored interrupted-search frontier",
+    ),
+    "store_puts": MetricDef(
+        COUNTER, "entries", "result-store entries durably published"
+    ),
+    "store_corrupt_quarantined": MetricDef(
+        COUNTER, "entries",
+        "torn or digest-corrupt store entries moved to quarantine/ (each "
+        "served as a miss)",
     ),
     # heartbeat and live introspection
     "heartbeats": MetricDef(COUNTER, "lines", "telemetry.jsonl heartbeat lines written"),
@@ -126,6 +174,24 @@ METRICS: Dict[str, MetricDef] = {
         "query, never a wait), so telemetry adds no host sync; launches "
         "never synced are read at teardown.  On the CPU: the host wall "
         "time of the plain version",
+    ),
+    "serve_queue_wait_s": MetricDef(
+        HISTOGRAM, "s",
+        "serve queue wait per admission grant (enqueue or requeue to lane "
+        "start)",
+    ),
+    "serve_wave_lanes": MetricDef(
+        HISTOGRAM, "lanes", "lanes per merged serve wave at formation",
+    ),
+    "store_get_s": MetricDef(
+        HISTOGRAM, "s",
+        "end-to-end result-store lookup latency (canonicalize + read + "
+        "rewrite + re-verify over all 2^8 inputs)",
+    ),
+    "rounds_per_dispatch": MetricDef(
+        HISTOGRAM, "rounds",
+        "search rounds completed per fused round-driver call (the "
+        "rounds-per-dispatch setting at best, 1 for the per-round loop)",
     ),
     "order_score_s": MetricDef(
         HISTOGRAM, "s",

@@ -170,6 +170,14 @@ class StatusServer:
         self._server = HTTPServer((host, int(port)), Handler)
         self._server.timeout = 1.0
 
+    def add_provider(self, name: str, provider) -> None:
+        """Registers one extra snapshot section after construction (the
+        serve CLI wires the orchestrator's queue view here); it runs under
+        the snapshot's error-note guard."""
+        if self.extra is None:
+            self.extra = {}
+        self.extra[name] = provider
+
     @property
     def port(self) -> int:
         """The bound port (the ephemeral one with ``port=0``)."""

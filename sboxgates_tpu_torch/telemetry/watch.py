@@ -164,7 +164,82 @@ def render(rec: dict, prev: Optional[dict] = None) -> str:
             f" p90={q.get('p90', float('nan')):.4g}s"
             f" p99={q.get('p99', float('nan')):.4g}s"
         )
+    serve = rec.get("serve")
+    if isinstance(serve, dict) and "counts" in serve:
+        lines.extend(render_serve(serve))
     return "\n".join(lines)
+
+
+#: Serve queue-view rows shown per refresh; the rest is summarized (a
+#: thousand-tenant queue must not scroll the terminal away).
+SERVE_MAX_ROWS = 16
+
+#: Display order: live states first, terminal states last.
+_SERVE_STATE_ORDER = {
+    "running": 0, "preempted": 1, "queued": 2,
+    "quarantined": 3, "done": 4,
+}
+
+
+def render_serve(serve: dict) -> List[str]:
+    """The serve-mode per-job queue section of one heartbeat record
+    (written by the orchestrator's status provider): aggregate counts,
+    then up to :data:`SERVE_MAX_ROWS` per-job rows — state, tenant,
+    priority, bucket, retries/preemptions, and the job's ttfh so far."""
+    counts = serve.get("counts", {})
+    store = serve.get("store")
+    head = (
+        f"  serve lanes={serve.get('lanes', '?')}"
+        f" bucket={serve.get('lane_bucket', '?')}"
+        + (
+            f" waves={serve['waves']}"
+            if serve.get("merge") and serve.get("waves") else ""
+        )
+        + (
+            f" store hit={store.get('hits', 0)}"
+            f"/part={store.get('partial_hits', 0)}"
+            f"/miss={store.get('misses', 0)}"
+            + ("(ro)" if store.get("readonly") else "")
+            if isinstance(store, dict) else ""
+        )
+        + (" DRAINING" if serve.get("draining") else "")
+    )
+    lines = [head, "    " + "  ".join(
+        f"{k}={counts.get(k, 0)}"
+        for k in ("queued", "running", "preempted", "quarantined", "done")
+    )]
+    jobs = serve.get("jobs", {})
+    rows = sorted(
+        jobs.items(),
+        key=lambda kv: (
+            _SERVE_STATE_ORDER.get(kv[1].get("state", ""), 9), kv[0]
+        ),
+    )
+    for job_id, row in rows[:SERVE_MAX_ROWS]:
+        bits = [
+            f"    {job_id:<16} {row.get('state', '?'):<11}",
+            f"tenant={row.get('tenant', '?')}",
+            f"prio={row.get('priority', 0)}",
+            f"bucket={row.get('bucket', '?')}",
+        ]
+        if "wave" in row:
+            bits.append(f"wave={row['wave']}")
+        if "store" in row:
+            bits.append(f"store={row['store']}")
+        if row.get("failures"):
+            bits.append(f"fail={row['failures']}")
+        if row.get("preemptions"):
+            bits.append(f"preempt={row['preemptions']}")
+        if "ttfh_s" in row:
+            bits.append(f"ttfh={row['ttfh_s']:.3g}s")
+        if "queue_wait_s" in row:
+            bits.append(f"wait={row['queue_wait_s']:.3g}s")
+        if "running_s" in row:
+            bits.append(f"run={row['running_s']:.3g}s")
+        lines.append(" ".join(bits))
+    if len(rows) > SERVE_MAX_ROWS:
+        lines.append(f"    ... {len(rows) - SERVE_MAX_ROWS} more jobs")
+    return lines
 
 
 def main(argv: Optional[List[str]] = None) -> int:

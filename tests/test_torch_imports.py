@@ -64,6 +64,12 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.search.fleet",
         "sboxgates_tpu_torch.search.multibox",
         "sboxgates_tpu_torch.search.warmup",
+        "sboxgates_tpu_torch.search.rounds",
+        "sboxgates_tpu_torch.search.serve",
+        "sboxgates_tpu_torch.core.canon",
+        "sboxgates_tpu_torch.store",
+        "sboxgates_tpu_torch.store.store",
+        "sboxgates_tpu_torch.store.rewrite",
     ):
         assert name in mods
 

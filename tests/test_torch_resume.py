@@ -197,15 +197,15 @@ REFUSALS = {
     "fleet": dict(fleet=True, fleet_candidates=2),
     "serve": dict(serve=True),
     "batch_iterations": dict(batch_iterations=True, mesh=True),
-    "chain_rounds": dict(chain_rounds=2),
     "shard_sweep": dict(shard_sweep=True),
     "several_inputs": dict(input=[FA, FA], shard_sweep=True),
 }
 # The setting each refusal names, where it is not the case's own.
 REFUSED_KEY = {"fleet": "fleet_candidates", "batch_iterations": "mesh",
                "several_inputs": "shard_sweep"}
-# The refusals the JAX CLI makes too, with its message.
-SHARED = ("version", "missing_key", "no_journal")
+# The refusals the JAX CLI makes too, with its message (a serve run
+# resumes by serving again, in both packages).
+SHARED = ("version", "missing_key", "no_journal", "serve")
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS) + ["no_journal"])
@@ -228,3 +228,38 @@ def test_a_journal_the_port_cannot_resume_is_refused_in_one_line(
         assert capsys.readouterr().err.strip().splitlines()[-1] == err
     else:
         assert f"records {REFUSED_KEY.get(case, case)}=" in err
+
+
+def _copy_run(src, dst):
+    shutil.copytree(src, dst)
+    return dst
+
+
+@pytest.mark.parametrize("case", ["chain_rounds", "result_store"])
+def test_a_chain_or_store_journal_resumes(case, tmp_path, monkeypatch):
+    """A killed ``--chain-rounds`` run resumes to the JAX CLI's files (the
+    golden of tests/torch_round_goldens.py), and a killed
+    ``--result-store`` run to the uninterrupted run's files, in the port
+    and in the JAX CLI alike, publishing to the journaled store."""
+    from sboxgates_tpu import cli as jcli
+
+    import torch_round_goldens as goldens
+
+    monkeypatch.chdir(tmp_path)
+    if case == "chain_rounds":
+        argv = ["-l", "--chain-rounds", "4", "--seed", "1",
+                goldens.planted_path()]
+        _killed(argv, "d", "journal.append", "4")
+        assert _main(["--resume-run", "d"]) == 0
+        goldens.compare_dir(goldens.golden_dir("planted_n4"), "d")
+        return
+    argv = ["-l", "-o", "0", "-i", "2", "--seed", SEED, "--result-store", "S",
+            DES]
+    assert _main(argv + ["--output-dir", "full"]) == 0
+    _killed(argv, "d", "journal.append", "2")
+    _copy_run("d", "d_jax")
+    assert _main(["--resume-run", "d"]) == 0
+    assert _files("d") == _files("full")
+    assert jcli.main(["--resume-run", "d_jax"]) == 0
+    assert _files("d_jax") == _files("full")
+    assert os.listdir(os.path.join("S", "objects"))
