@@ -133,7 +133,29 @@ prints no result.  Phases, each of which raises on failure:
       serve's files (a job finished before the signal runs again and its
       journal gains a second ``run_done``, as in the JAX package).
    ``--rounds`` runs the build and phase 12 alone, with the DES-8 serve on
-   the device route too.
+   the device route too;
+13. the HTTP admission front door (``serve_net/``; request sequences and
+   goldens of tests/torch_net_goldens.py, written by the JAX package):
+   a. the eight planted chains posted over loopback HTTP to an in-process
+      ``AdmissionServer`` on the device route, all admitted before the
+      orchestrator starts (one merged wave of 8 lanes, K3's lane form),
+      long-polled to their ends: every response and file the golden's
+      (``net_chain8_dev``); 200 repeat POSTs of the finished queries (200
+      each, with circuits, no device dispatch, no kernel launch); the
+      admissions per second and ``net_admit_s`` of the eight fresh POSTs
+      (median, max) and of the repeats (median, p99); to a second server
+      whose orchestrator never starts, one request each for 401, 403, 411,
+      413, 400 and 429 (rate, quota) and 200 fresh admissions (the eight
+      chains under new Idempotency-Keys: admit record, S-box file and
+      queue, no search; median and p99), none reaching the device;
+   b. ``-o 0 --serve --serve-lanes 8 --serve-port 0 --serve-token-file T``
+      (the CLI in a fresh process, default route): DES S1-S8 posted and
+      long-polled, SIGTERM; the golden ``net_des8_o0``, nothing pending;
+      the same command again replays nothing;
+   c. the same command under ``SBG_FAULTS=net.admit_journal:crash@2``
+      exits 17 with one job admitted and not queued; the command again
+      replays it to the uninterrupted run's files.
+   ``--net`` runs the build and phase 13 alone.
 
 Every CLI run's output directory must hold the JAX CLI's names for the same
 command and nothing else: its XML files, the journal
@@ -143,8 +165,8 @@ tests/torch_journal_goldens.py), the telemetry of an explicit
 ``--output-dir`` (``telemetry.jsonl``, ``metrics.json``), and the trace and
 the flight dumps where the run makes them.
 
-The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b, 11, 12) and phase 6
-are the main path.  Every launch
+The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b, 11, 12), phase 6
+and 13a's serve are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
 kernel and K2's on the G = 99 resume with their backend, K5 on the
@@ -2479,6 +2501,282 @@ def phase_serve_drain(dev, outdir: str) -> dict:
             "drained": len(drained)}
 
 
+# -------------------------------------------------------------------------
+# Phase 13: the HTTP admission front door
+# -------------------------------------------------------------------------
+
+
+def net_goldens():
+    """tests/torch_net_goldens.py: the front door's request sequences and
+    their JAX package goldens (tests/data/torch_golden/net/<case>/)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_net_goldens
+
+    return torch_net_goldens
+
+
+def kernel_totals() -> tuple:
+    """Every kernel's launch count as it stands (no reset)."""
+    from sboxgates_tpu_torch.codegen import cuda_kernel
+    from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile, spectral
+
+    return (lut5_filter.launches, lut5_filter.lane_launches,
+            sorted(pivot_tile.launches.items()), spectral.launches,
+            cuda_kernel.launches)
+
+
+def p50_p99(xs) -> tuple:
+    xs = sorted(xs)
+    return statistics.median(xs), xs[max(0, math.ceil(0.99 * len(xs)) - 1)]
+
+
+def admit_samples(ctx) -> list:
+    """The ``net_admit_s`` values ``ctx``'s registry observes from now on,
+    in order (the registry keeps only the histogram)."""
+    samples = []
+    observe = ctx.stats.observe
+
+    def record(name, value):
+        if name == "net_admit_s":
+            samples.append(value)
+        observe(name, value)
+
+    ctx.stats.observe = record
+    return samples
+
+
+def net_serve(dev, root: str) -> dict:
+    """13a: net_chain8_dev's requests through the port's AdmissionServer
+    in process on ``dev`` (the device route, the eight planted chains
+    admitted before the orchestrator starts: one merged wave), every
+    response and file held against the JAX package's golden.  Returns the
+    stack, still serving, and the fresh admissions' numbers."""
+    g = net_goldens()
+    ctx, orch, srv = g.make_stack("torch", "net_chain8_dev", root,
+                                  device=dev.type)
+    samples = admit_samples(ctx)
+    srv.start()
+    times = []
+    out, ids = g.drive(srv.port, g.CASES["net_chain8_dev"]["steps"], orch,
+                       times=times)
+    left = g.settle("torch", root)
+    if left:
+        raise AssertionError(f"13a: jobs {left} pending after the serve")
+    g.compare_net("net_chain8_dev", root, out)
+    start = next(t0 for kind, t0, _ in times if kind == "start")
+    polls = [t1 for kind, _, t1 in times if kind == "poll"]
+    fresh = [t1 - t0 for _, t0, t1 in times[:8]]
+    return {"stack": (ctx, orch, srv), "samples": samples, "ids": ids,
+            "fresh_admit_s": samples[:8], "fresh_wall_s": sum(fresh),
+            "serve_s": max(polls) - start,
+            "dispatches": int(ctx.stats.get("device_dispatches", 0))}
+
+
+def net_repeats(r: dict, n: int = 200) -> dict:
+    """13a: ``n`` repeat POSTs of the finished queries: each 200 with its
+    circuit, no device dispatch and no kernel launch."""
+    g = net_goldens()
+    ctx, orch, srv = r["stack"]
+    hits0 = int(ctx.stats.get("net_repeat_hits", 0))
+    kern0 = kernel_totals()
+    before = len(r["samples"])
+    t0 = time.perf_counter()
+    for i in range(n):
+        box = ("file", g.PLANTED8[i % 8])
+        s, d = g.request(srv.port, "POST", "/v1/jobs",
+                         {"sbox": g.sbox_text(box)}, token=g.TOKENS["acme"])
+        if s != 200 or d.get("state") != "done" or not d.get("circuits") \
+                or d["job_id"] != r["ids"][i % 8]:
+            raise AssertionError(f"13a repeat {i}: {s} {d}")
+    wall = time.perf_counter() - t0
+    hits = int(ctx.stats.get("net_repeat_hits", 0)) - hits0
+    if hits != n or kernel_totals() != kern0 or \
+            int(ctx.stats.get("device_dispatches", 0)) != r["dispatches"]:
+        raise AssertionError(f"13a: {n} repeats gave {hits} repeat hits, "
+                             f"kernels {kernel_totals()} (were {kern0}), "
+                             f"{ctx.stats.get('device_dispatches')} dispatches")
+    return {"wall_s": wall, "admit_s": r["samples"][before:]}
+
+
+#: The unstarted server's tenants: the rejection checks' and one whose
+#: quota and rate hold 200 queued jobs.
+IDLE_TENANTS = {"bulk": {"token": "tok-bulk", "max_jobs": 256,
+                         "rate_per_s": 1e4, "burst": 400}}
+
+
+def net_idle_server(dev, root: str, n: int = 200) -> dict:
+    """13a: an admission server on ``dev`` whose orchestrator never
+    starts.  One request each for 401, 403, 411, 413, 400 (bad JSON) and
+    429 (rate and quota): each its status, code and counter.  Then ``n``
+    fresh admissions, the eight planted chains under new Idempotency-Keys
+    (each a new job: quota, admit record, S-box file, queue), 202 each.
+    Neither a device dispatch nor a kernel launch."""
+    g = net_goldens()
+    ctx, orch, srv = g.build_stack("torch", root, {"lut_graph": True,
+                                                   "seed": 1},
+                                   "dev", 2, dev.type,
+                                   g.REJECT_TENANTS | IDLE_TENANTS)
+    srv.start()
+    toy = " ".join("%02x" % v for v in g.toy_values(0))
+    kern0 = kernel_totals()
+    post = lambda body, token, idem=None: g.request(  # noqa: E731
+        srv.port, "POST", "/v1/jobs", body, token=token, idem=idem)
+    cases = (
+        ("401", lambda: post({"sbox": toy}, "wrong"), "net_rejected_auth"),
+        ("403", lambda: post({"sbox": toy}, "tok-off"), "net_rejected_auth"),
+        ("411", lambda: g.raw_request(srv.port, (
+            "POST /v1/jobs HTTP/1.1\r\nHost: t\r\nAuthorization: Bearer "
+            "tok-acme\r\n\r\n").encode()), None),
+        ("413", lambda: post("x" * (65 * 1024), "tok-acme"), "net_oversize"),
+        ("400", lambda: post("{not json", "tok-acme"), None),
+        ("429 rate", lambda: (post({"sbox": "x"}, "tok-slow"),
+                              post({"sbox": "x"}, "tok-slow"))[1],
+         "net_rejected_rate"),
+        ("429 quota", lambda: (post({"sbox": toy, "output": 0}, "tok-one"),
+                               post({"sbox": toy, "output": 1}, "tok-one"))[1],
+         "net_rejected_quota"),
+    )
+    got = {}
+    try:
+        for name, send, counter in cases:
+            n0 = int(ctx.stats.get(counter, 0)) if counter else 0
+            s, d = send()
+            if s != int(name[:3]) or d["error"]["status"] != s or (
+                    counter and int(ctx.stats.get(counter, 0)) != n0 + 1):
+                raise AssertionError(f"13a rejection {name}: {s} {d}")
+            got[name] = d["error"]["code"]
+        samples = admit_samples(ctx)
+        admitted0 = int(ctx.stats.get("net_jobs_admitted", 0))
+        texts = [g.sbox_text(("file", p)) for p in g.PLANTED8]
+        t0 = time.perf_counter()
+        for i in range(n):
+            s, d = post({"sbox": texts[i % 8]}, "tok-bulk", f"fresh-{i}")
+            if s != 202 or d.get("state") != "queued":
+                raise AssertionError(f"13a fresh admission {i}: {s} {d}")
+        wall = time.perf_counter() - t0
+    finally:
+        srv.close()
+        orch.stop()
+    admitted = int(ctx.stats.get("net_jobs_admitted", 0)) - admitted0
+    if admitted != n or len(samples) != n or orch.active_jobs("bulk") != n:
+        raise AssertionError(f"13a: {admitted} of {n} fresh admissions, "
+                             f"{orch.active_jobs('bulk')} queued")
+    if kernel_totals() != kern0 or ctx.stats.get("device_dispatches", 0) or \
+            ctx.stats.get("circuit_breaker_trips", 0):
+        raise AssertionError("13a: a rejection or an admission reached "
+                             "the device")
+    return {"rejected": got, "fresh_admit_s": samples, "fresh_wall_s": wall}
+
+
+def net_cli(outdir: str) -> dict:
+    """13b and 13c: net_des8_o0's command through the port's CLI in fresh
+    processes on the card (the default route), SIGTERM ending each; 13b
+    and 13c run side by side (their own directories and ports)."""
+    import signal as _signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    g = net_goldens()
+    cmd = [sys.executable, "-m", "sboxgates_tpu_torch"]
+    env = g.cli_env()
+
+    def run_13b() -> dict:
+        cwd = os.path.join(outdir, "13b")
+        os.makedirs(cwd)
+        t0 = time.perf_counter()
+        rc, resp, ids, text = g.run_cli("torch", cmd, "net_des8_o0", cwd, env)
+        first = time.perf_counter() - t0
+        if rc != -_signal.SIGTERM:
+            raise AssertionError(f"13b: the CLI exited {rc}:\n{text[-3000:]}")
+        d = os.path.join(cwd, "D")
+        g.compare_net("net_des8_o0", d, resp)
+        if g.pending("torch", d):
+            raise AssertionError(f"13b: {g.pending('torch', d)} pending")
+        t0 = time.perf_counter()
+        rc, (s, doc), text = g.rerun_replays_nothing("torch", cmd, cwd, env,
+                                                     ids[0])
+        again = time.perf_counter() - t0
+        if rc != -_signal.SIGTERM or s != 404 or "serve-net: replayed" in text:
+            raise AssertionError(f"13b: the same command again: {rc} {s} "
+                                 f"{doc}\n{text[-3000:]}")
+        g.compare_net("net_des8_o0", d, only=set(ids))
+        return {"13b_s": first, "13b_again_s": again}
+
+    def run_13c() -> dict:
+        cwd = os.path.join(outdir, "13c")
+        os.makedirs(cwd)
+        t0 = time.perf_counter()
+        rc1, left, rc2, text = g.crash_and_replay("torch", cmd, cwd, env)
+        wall = time.perf_counter() - t0
+        d = os.path.join(cwd, "D")
+        if rc1 != 17 or len(left) != 1 or rc2 != -_signal.SIGTERM or \
+                "serve-net: replayed 1 admitted job(s)" not in text or \
+                g.pending("torch", d):
+            raise AssertionError(f"13c: exits {rc1}, {rc2}, pending {left} "
+                                 f"then {g.pending('torch', d)}:\n"
+                                 f"{text[-3000:]}")
+        g.compare_net("net_des8_o0", d, only=set(left))
+        return {"13c_s": wall}
+
+    with ThreadPoolExecutor(2) as pool:
+        b, c = pool.submit(run_13b), pool.submit(run_13c)
+        return b.result() | c.result()
+
+
+def phase_net(dev, on_path) -> dict:
+    """Phase 13: the HTTP admission front door (13a in process on the
+    device route, 13b and 13c the CLI in fresh processes)."""
+    t_phase = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    box = {}
+    try:
+        counts = on_path("net_chain8_dev", lambda: box.update(
+            r=net_serve(dev, os.path.join(outdir, "13a"))))
+        r = box["r"]
+        try:
+            rep = net_repeats(r)
+        finally:
+            ctx, orch, srv = r["stack"]
+            srv.close()
+            orch.run_until_idle(timeout_s=60)
+            orch.stop()
+        idle = net_idle_server(dev, os.path.join(outdir, "13a-idle"))
+        cli = net_cli(outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    if counts["lut5_filter_lanes"] < 1:
+        raise AssertionError(f"13a: K3's lane form never launched: {counts}")
+    fm, fx = statistics.median(r["fresh_admit_s"]), max(r["fresh_admit_s"])
+    rm, rp = p50_p99(rep["admit_s"])
+    im, ip = p50_p99(idle["fresh_admit_s"])
+    n_idle = len(idle["fresh_admit_s"])
+    log(f"  13a net_chain8_dev over HTTP (device route, 8 lanes, one merged "
+        f"wave): every response and file the JAX package's; serve "
+        f"{r['serve_s']:.3f} s ({8 / r['serve_s']:.3f} jobs/s), K3 lane-form "
+        f"launches {counts['lut5_filter_lanes']}, single-lane "
+        f"{counts['lut5_filter']}, device_dispatches {r['dispatches']}")
+    log(f"  13a the 8 fresh admissions: {8 / r['fresh_wall_s']:.1f} "
+        f"admissions/s (client round trips), net_admit_s median "
+        f"{1e3 * fm:.3f} ms, max {1e3 * fx:.3f} ms")
+    log(f"  13a 200 repeat POSTs: {200 / rep['wall_s']:.1f} admissions/s, "
+        f"net_admit_s median {1e3 * rm:.3f} ms, p99 {1e3 * rp:.3f} ms; 200 "
+        "repeat hits, no device dispatch, no kernel launch")
+    log(f"  13a rejections: {idle['rejected']}; {n_idle} fresh admissions "
+        f"to the unstarted orchestrator: "
+        f"{n_idle / idle['fresh_wall_s']:.1f} admissions/s, net_admit_s "
+        f"median {1e3 * im:.3f} ms, p99 {1e3 * ip:.3f} ms; no device "
+        "dispatch, no kernel launch")
+    log(f"  13b the CLI (default route): {cli['13b_s']:.2f} s, the JAX "
+        f"package's files; the same command again {cli['13b_again_s']:.2f} s, "
+        f"nothing replayed; 13c crash and replay {cli['13c_s']:.2f} s")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 13: {wall:.1f} s ({gpu_line()})")
+    return {"counts": counts, "serve_s": r["serve_s"],
+            "fresh_admit_ms": (1e3 * fm, 1e3 * fx),
+            "idle_admit_ms": (1e3 * im, 1e3 * ip),
+            "repeat_admit_ms": (1e3 * rm, 1e3 * rp),
+            "repeat_per_s": 200 / rep["wall_s"], "wall_s": wall, **cli}
+
+
 def phase_paths(dev) -> dict:
     """``--paths``: the single-lane device-route paths, timed, for a
     comparison of two trees in one call (this script run from each tree's
@@ -2598,9 +2896,9 @@ def main() -> int:
         print(gpu_line(), flush=True)
         print(json.dumps(phase_paths(dev)), flush=True)
         return 0
-    if "--rounds" in sys.argv[1:]:
-        # Phase 12 alone (its CLI runs counted as in a whole run), no
-        # result line.
+    if "--rounds" in sys.argv[1:] or "--net" in sys.argv[1:]:
+        # Phase 12 (or, with --net, phase 13) alone, its runs counted as
+        # in a whole run; no result line.
         from sboxgates_tpu_torch.ops import lut5_filter as _l5
 
         def counted_path(name, drive) -> dict:
@@ -2617,7 +2915,10 @@ def main() -> int:
                                     "circuit_eval": cuda_kernel.launches}
 
         print(gpu_line(), flush=True)
-        phase_rounds(dev, counted_path, extended=True)
+        if "--net" in sys.argv[1:]:
+            phase_net(dev, counted_path)
+        else:
+            phase_rounds(dev, counted_path, extended=True)
         return 0
     log("phase 2 parity")
     par = phase_parity(dev)
@@ -2800,6 +3101,8 @@ def main() -> int:
     for label, val in rounds.items():
         if label.startswith("12") and label != "12d" and val[2] is not None:
             paths[label] = val[0]
+    # Phase 13: the HTTP admission front door.
+    paths["net_chain8_dev"] = phase_net(dev, on_path)["counts"]
     if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
         raise AssertionError("a search path launched a single-tile K1 or K2")
     for name in LANE_KERNELS:

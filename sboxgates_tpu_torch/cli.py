@@ -46,13 +46,15 @@ mux that a card runs by default (``Options.parallel_mux``).
 ``--chain-rounds N`` solves the missing outputs of a LUT search as one
 greedy chain of rounds, up to N per device call (``search/rounds.py``).
 
-Serving, as in the JAX CLI but for its HTTP front door: ``--serve`` runs
-each input file as one job of the fault-tolerant queue of
-``search/serve.py`` (``--serve-lanes``, ``--serve-retries``,
-``--serve-timeout``, ``--serve-no-merge``; per-job files under
-``DIR/<job-id>/``), and ``--result-store DIR`` (or ``SBG_RESULT_STORE``)
-publishes finished circuits to the content-addressed store of ``store/``,
-which serve admission consults first.
+Serving, as in the JAX CLI: ``--serve`` runs each input file as one job
+of the fault-tolerant queue of ``search/serve.py`` (``--serve-lanes``,
+``--serve-retries``, ``--serve-timeout``, ``--serve-no-merge``; per-job
+files under ``DIR/<job-id>/``), ``--serve-port`` with
+``--serve-token-file`` opens the authenticated HTTP admission front door
+of ``serve_net/`` (``POST /v1/jobs``, ``GET /v1/jobs/<id>?wait=N``; the
+run then lasts until ``SIGTERM``), and ``--result-store DIR`` (or
+``SBG_RESULT_STORE``) publishes finished circuits to the content-addressed
+store of ``store/``, which serve admission consults first.
 
 Telemetry, as in the JAX CLI: with an explicit ``--output-dir`` (or
 ``--resume-run``) a run also writes the heartbeat ``telemetry.jsonl``
@@ -164,6 +166,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "seconds (default: unbounded); a breach is raised "
                         "at the job's next journal boundary and consumes "
                         "one retry")
+    p.add_argument("--serve-port", type=int, default=None, metavar="PORT",
+                   help="serve mode only: open the network admission "
+                        "service on http://127.0.0.1:PORT (0 binds an "
+                        "ephemeral port) — an authenticated, quota-"
+                        "enforced HTTP front door (serve_net/): POST "
+                        "/v1/jobs submits a query idempotently (repeat "
+                        "of a stored query answers 200 with the circuit "
+                        "and zero device dispatches; an in-flight "
+                        "duplicate joins the existing search), GET "
+                        "/v1/jobs/<id>?wait=N long-polls progress, and "
+                        "every accepted job is fsync'd to an admission "
+                        "journal BEFORE its 202 so a crash loses "
+                        "nothing (restart replays it); requires "
+                        "--serve-token-file")
+    p.add_argument("--serve-token-file", default=None, metavar="FILE",
+                   help="per-tenant bearer-token file for --serve-port "
+                        "(JSON: {\"version\": 1, \"tenants\": {name: "
+                        "{\"token\": ..., \"max_jobs\": N, "
+                        "\"rate_per_s\": R, \"burst\": B}}}); loaded "
+                        "FAIL-CLOSED — a missing, corrupt, or world-"
+                        "writable file refuses to serve rather than "
+                        "admit openly")
     p.add_argument("--serve-no-merge", action="store_true",
                    help="disable merged serve waves: same-bucket jobs "
                         "admitted together then dispatch their sweeps "
@@ -250,11 +274,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reported in the heartbeat start line's "
                         "config).  Observation-only: results are "
                         "bit-identical with or without it")
-    # The JAX CLI's flags of the parts not ported yet (its HTTP front door
-    # and several cards): each is refused in one line.
-    for flag, kw in (("--serve-port", dict(metavar="PORT")),
-                     ("--serve-token-file", dict(metavar="FILE")),
-                     ("--mesh", dict(action="store_true")),
+    # The JAX CLI's flags of the parts not ported yet (several cards):
+    # each is refused in one line.
+    for flag, kw in (("--mesh", dict(action="store_true")),
                      ("--shard-sweep", dict(action="store_true")),
                      ("--coordinator", dict(metavar="ADDR")),
                      ("--num-processes", dict(metavar="N")),
@@ -329,13 +351,7 @@ JOURNAL_KEY_DEFAULTS = {
 UNPORTED_KEYS = {
     "mesh": False,
     "shard_sweep": False,
-    "serve_port": None,
-    "serve_token_file": None,
 }
-
-#: Unported settings that change what a resumed run would do (the token
-#: file is only read with a serve port).
-_REFUSED = ("mesh", "shard_sweep", "serve_port")
 
 
 def _err(msg: str) -> int:
@@ -384,8 +400,8 @@ def _resume_config(args) -> Optional[int]:
             "and --output-dir instead of --resume-run (each job "
             "resumes bit-identically from its per-job journal)."
         )
-    refused = [(k, getattr(args, k)) for k in _REFUSED
-               if getattr(args, k) != UNPORTED_KEYS[k]]
+    refused = [(k, getattr(args, k)) for k, v in UNPORTED_KEYS.items()
+               if getattr(args, k) != v]
     if args.fleet_candidates != 1:
         refused.append(("fleet_candidates", args.fleet_candidates))
     if refused:
@@ -399,6 +415,47 @@ def _resume_config(args) -> Optional[int]:
         print(f"Run in {args.resume_run} is already complete; nothing to resume.")
         return 0
     args.journal = journal
+    return None
+
+
+def _check_serve_port(args) -> Optional[int]:
+    """The JAX CLI's checks of ``--serve-port``, in its order and with its
+    one-line messages: serve mode, the port's range, a token file that
+    loads fail-closed (before anything heavy is imported), and a port that
+    binds now (0 always binds).  Returns an exit code, or None."""
+    if not args.serve:
+        return _err(
+            "--serve-port requires --serve (and an explicit "
+            "--output-dir): the admission service fronts the serve "
+            "orchestrator."
+        )
+    if not (0 <= args.serve_port <= 65535):
+        return _err(f"Bad serve port value: {args.serve_port}")
+    if args.serve_token_file is None:
+        return _err(
+            "--serve-port requires --serve-token-file: network "
+            "admission is authenticated-only (never open)."
+        )
+    from .serve_net import TokenFileError, TokenStore, check_file
+
+    problem = check_file(args.serve_token_file)
+    if problem is not None:
+        return _err(problem)
+    try:
+        TokenStore.load(args.serve_token_file)
+    except TokenFileError as e:
+        return _err(str(e))
+    import socket
+
+    probe = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        probe.bind(("127.0.0.1", args.serve_port))
+    except OSError as e:
+        return _err(
+            f"serve port {args.serve_port} unavailable: {e.strerror or e}"
+        )
+    finally:
+        probe.close()
     return None
 
 
@@ -544,6 +601,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             return _err(f"Bad serve timeout value: {args.serve_timeout}")
     if args.serve_no_merge and not args.serve:
         return _err("--serve-no-merge requires --serve.")
+    if args.serve_port is not None:
+        rc = _check_serve_port(args)
+        if rc is not None:
+            return rc
+    elif args.serve_token_file is not None:
+        return _err("--serve-token-file requires --serve-port.")
     if args.chain_rounds < 0:
         return _err(f"Bad chain rounds value: {args.chain_rounds}")
     if args.chain_rounds > 0:
@@ -755,7 +818,13 @@ def _run_serve(ctx, args, journal, tele) -> int:
     """``--serve``: every input file is one job of the queue of
     :mod:`.search.serve` (per-job journals and files under
     ``DIR/<job-id>/``); the run journal records the configuration and the
-    final counts.  SIGTERM drains the queue before the run's own dump."""
+    final counts.  SIGTERM drains the queue before the run's own dump.
+
+    With ``--serve-port`` the HTTP admission front door of
+    :mod:`.serve_net` fronts the queue: the admission journal replays the
+    jobs a previous boot admitted but did not finish before the listener
+    opens, and the run lasts until SIGTERM, which closes the listener
+    before it drains the queue."""
     from .resilience.deadline import DeadlineConfig
     from .search.serve import ServeJob, ServeOrchestrator
 
@@ -767,6 +836,21 @@ def _run_serve(ctx, args, journal, tele) -> int:
         merge=False if args.serve_no_merge else None,
     )
     tele.add_provider("serve", orch.status_view)
+    net_server = None
+    if args.serve_port is not None:
+        from .serve_net import TokenStore
+        from .serve_net.server import AdmissionServer
+
+        net_server = AdmissionServer(
+            orch, TokenStore.load(args.serve_token_file), ctx.stats,
+            args.output_dir, port=args.serve_port, log=print,
+        )
+        replayed = net_server.replay()
+        if replayed:
+            print(f"serve-net: replayed {len(replayed)} admitted job(s) "
+                  "from the admission journal")
+        # SIGTERM closes the front door first, then drains the queue.
+        tele.drain_hooks.append(net_server.close)
     tele.drain_hooks.append(lambda: orch.drain(timeout_s=10.0))
     for i, path in enumerate(args.input):
         stem = os.path.splitext(os.path.basename(path))[0]
@@ -775,7 +859,16 @@ def _run_serve(ctx, args, journal, tele) -> int:
             output=args.single_output, permute=args.permute,
         ))
     orch.start()
-    view = orch.run_until_idle()
+    if net_server is not None:
+        net_server.start()
+        print("serve-net: admission endpoint on "
+              f"http://127.0.0.1:{net_server.port}/v1/jobs", flush=True)
+        # Admission arrives over HTTP, so idle is not done: only a drain
+        # (SIGTERM) ends the run.
+        view = orch.run_until_drained()
+        net_server.close()
+    else:
+        view = orch.run_until_idle()
     orch.stop()
     counts = view["counts"]
     print("serve: " + "  ".join(

@@ -28,6 +28,10 @@ search.  Sites the port fires:
 ``store.get``             entering a result-store lookup
 ``store.put``             before a result-store entry write
 ``store.index``           before a result-store index append
+``net.accept``            dispatching one admission-API HTTP request
+``net.auth``              checking one admission request's bearer token
+``net.body``              reading one admission request's body
+``net.admit_journal``     after an admission-journal record reaches disk
 ========================  =====================================================
 
 Arming — ``SBG_FAULTS`` (read at first use) or :func:`arm`::
@@ -86,6 +90,10 @@ KNOWN_SITES = (
     "store.get",
     "store.put",
     "store.index",
+    "net.accept",
+    "net.auth",
+    "net.body",
+    "net.admit_journal",
 )
 
 

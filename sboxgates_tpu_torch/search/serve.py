@@ -1186,14 +1186,18 @@ class ServeOrchestrator:
             if view is not None:
                 self.ctx.stats.merge(view.stats)
             with self._cv:
-                self._workers.pop(job.job_id, None)
                 terminal = job.state in TERMINAL
-                self._cv.notify_all()
             if terminal:
-                # Fired after the worker entry is popped and artifacts
-                # have landed — a wait_terminal() woken by the notify
-                # above and an on_terminal observer see the same state.
+                # Fired after the artifacts have landed and BEFORE the
+                # worker entry is popped: run_until_idle/_drained and
+                # wait_terminal() wait for the entry, so nothing that
+                # returns "idle" or "terminal" can outrun the observer
+                # (the admission journal's durable done marker).  A
+                # terminal job is never requeued, so it cannot run again.
                 self._notify_terminal(job)
+            with self._cv:
+                self._workers.pop(job.job_id, None)
+                self._cv.notify_all()
 
     def _requeue(self, job: ServeJob, backoff_s: float = 0.0) -> None:
         """Back onto the queue (preemption or retriable failure).  The

@@ -138,6 +138,55 @@ METRICS: Dict[str, MetricDef] = {
         "torn or digest-corrupt store entries moved to quarantine/ (each "
         "served as a miss)",
     ),
+    # network admission front door (serve_net/)
+    "net_requests": MetricDef(
+        COUNTER, "requests",
+        "HTTP requests dispatched by the admission endpoint (every "
+        "outcome, 2xx through 5xx)",
+    ),
+    "net_jobs_admitted": MetricDef(
+        COUNTER, "jobs",
+        "fresh network admissions journaled and enqueued (the 202 path)",
+    ),
+    "net_joined": MetricDef(
+        COUNTER, "requests",
+        "duplicate submissions joined to an in-flight job instead of "
+        "searching again (idempotent join: N clients, one search)",
+    ),
+    "net_repeat_hits": MetricDef(
+        COUNTER, "requests",
+        "submissions answered 200 with a finished circuit and zero "
+        "device dispatches (store hit at admission, or repeat of a "
+        "completed job)",
+    ),
+    "net_rejected_auth": MetricDef(
+        COUNTER, "requests",
+        "admission requests rejected 401/403 (missing/unknown token, "
+        "disabled tenant) before the orchestrator is touched",
+    ),
+    "net_rejected_quota": MetricDef(
+        COUNTER, "requests",
+        "admissions rejected 429: the tenant is at its active-job quota",
+    ),
+    "net_rejected_rate": MetricDef(
+        COUNTER, "requests",
+        "requests rejected 429 by the per-tenant token-bucket rate limit",
+    ),
+    "net_oversize": MetricDef(
+        COUNTER, "requests",
+        "request bodies rejected 413 at the declared size bound "
+        "(before a byte is read)",
+    ),
+    "net_timeouts": MetricDef(
+        COUNTER, "requests",
+        "requests cut off 408 at the socket read timeout (slowloris / "
+        "half-open senders; the serve loop never wedges)",
+    ),
+    "net_errors": MetricDef(
+        COUNTER, "requests",
+        "admission requests answered 5xx (injected faults included); "
+        "each drops a flight-recorder dump",
+    ),
     # heartbeat and live introspection
     "heartbeats": MetricDef(COUNTER, "lines", "telemetry.jsonl heartbeat lines written"),
     "status_requests": MetricDef(
@@ -192,6 +241,12 @@ METRICS: Dict[str, MetricDef] = {
         HISTOGRAM, "rounds",
         "search rounds completed per fused round-driver call (the "
         "rounds-per-dispatch setting at best, 1 for the per-round loop)",
+    ),
+    "net_admit_s": MetricDef(
+        HISTOGRAM, "s",
+        "admission-endpoint service time per accepted/answered POST "
+        "(auth + bounded read + canonical key + durable admit record + "
+        "enqueue)",
     ),
     "order_score_s": MetricDef(
         HISTOGRAM, "s",

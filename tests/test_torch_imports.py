@@ -70,6 +70,10 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.store",
         "sboxgates_tpu_torch.store.store",
         "sboxgates_tpu_torch.store.rewrite",
+        "sboxgates_tpu_torch.serve_net",
+        "sboxgates_tpu_torch.serve_net.tokens",
+        "sboxgates_tpu_torch.serve_net.admission",
+        "sboxgates_tpu_torch.serve_net.server",
     ):
         assert name in mods
 

@@ -196,6 +196,9 @@ REFUSALS = {
     # batch on a mesh, a sweep sharded over processes.
     "fleet": dict(fleet=True, fleet_candidates=2),
     "serve": dict(serve=True),
+    # A serve run with the HTTP front door resumes by serving again too.
+    "serve_port": dict(serve=True, serve_port=0,
+                       serve_token_file="tokens.json"),
     "batch_iterations": dict(batch_iterations=True, mesh=True),
     "shard_sweep": dict(shard_sweep=True),
     "several_inputs": dict(input=[FA, FA], shard_sweep=True),
@@ -205,7 +208,7 @@ REFUSED_KEY = {"fleet": "fleet_candidates", "batch_iterations": "mesh",
                "several_inputs": "shard_sweep"}
 # The refusals the JAX CLI makes too, with its message (a serve run
 # resumes by serving again, in both packages).
-SHARED = ("version", "missing_key", "no_journal", "serve")
+SHARED = ("version", "missing_key", "no_journal", "serve", "serve_port")
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS) + ["no_journal"])

@@ -630,7 +630,7 @@ def test_serve_rejects_incoherent_flags_in_one_line(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--serve-port", "0"], ["--serve-token-file", "t.json"], ["--mesh"],
+    ["--mesh"],
     ["--shard-sweep"], ["--coordinator", "localhost:1"],
     ["--num-processes", "2"], ["--process-id", "0"],
     ["--fleet-candidates", "2"],
