@@ -155,7 +155,33 @@ prints no result.  Phases, each of which raises on failure:
    c. the same command under ``SBG_FAULTS=net.admit_journal:crash@2``
       exits 17 with one job admitted and not queued; the command again
       replays it to the uninterrupted run's files.
-   ``--net`` runs the build and phase 13 alone.
+   ``--net`` runs the build and phase 13 alone;
+14. several shards and processes on the one card (goldens of
+   tests/torch_mesh_goldens.py, written by the JAX package at the same
+   device count):
+   a. ``SBG_LOCAL_SHARDS=2 ... --mesh``: the G = 99 resume on the device
+      route with each backend and DES S1 ``-l -o 0 --seed 1``; K1's (K2's)
+      windows counted by shard, both shards launching;
+   b. the G = 99 resume on two processes of the card (``--coordinator
+      127.0.0.1:P --num-processes 2 --process-id i``, gloo: they share the
+      card): rank 0 writes the JAX CLI's 2 x 1 files, both ranks return
+      the same state, each rank's shard launches its windows;
+   c. ``--permute-sweep --shard-sweep`` on two ranks with rank 1 killed
+      at its third round, then ``--resume-run``: the uninterrupted run's
+      files; the replicated abort (``dispatch.sweep@rank:1`` hanging every
+      window, tests/torch_mesh_worker.py): the JAX workers' lines;
+   d. ``--fleet --fleet-candidates 2`` on two shards;
+   e. the whole G = 200 pivot space against a random target through the
+      sharded stream on 1 x 1, 1 x 2 and (two gloo ranks) 2 x 1 shards:
+      candidates/s, windows and all-reduces per window.
+   ``--mesh`` runs the build and phase 14 alone.
+15. ``--cards`` only, run by hand on a host of several cards (the
+   default run needs one card and leaves it out): 15a the G = 99 resume
+   on one process over the n cards, a shard per card; 15b the same on n
+   processes of one card each, whose collectives run on NCCL, both
+   against the JAX CLI's n-device goldens (four cards: ``g99_d4_dev`` and
+   ``g99_p4x1_dev`` of tests/torch_mesh_goldens.py, which only this phase
+   reads); 15c the G = 200 space on 1 x 1, 1 x n and n x 1.
 
 Every CLI run's output directory must hold the JAX CLI's names for the same
 command and nothing else: its XML files, the journal
@@ -165,8 +191,8 @@ tests/torch_journal_goldens.py), the telemetry of an explicit
 ``--output-dir`` (``telemetry.jsonl``, ``metrics.json``), and the trace and
 the flight dumps where the run makes them.
 
-The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b, 11, 12), phase 6
-and 13a's serve are the main path.  Every launch
+The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b, 11, 12, 14a,
+14d), phase 6 and 13a's serve are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
 kernel and K2's on the G = 99 resume with their backend, K5 on the
@@ -1259,6 +1285,7 @@ def zero_pivot_counts() -> None:
 
     pivot_tile.launches.update(packed=0, pre=0, tile=0, pre_tile=0, lanes=0)
     pivot_tile.tiles.update(packed=0, pre=0, lanes=0, solved=0)
+    pivot_tile.shard_launches.clear()
 
 
 def counted(fn, *args):
@@ -2845,6 +2872,380 @@ JOURNAL_RUNS = {
 }
 
 # Each kernel: (route, source, TPU kernel replaced, home path).
+# -------------------------------------------------------------------------
+# Phase 14: several shards and processes on the one card
+# -------------------------------------------------------------------------
+
+
+def mesh_goldens():
+    """tests/torch_mesh_goldens.py: the mesh and multi-process cases and
+    their JAX goldens."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_mesh_goldens
+
+    return torch_mesh_goldens
+
+
+def run_mesh_case(dev, label: str, case: str, outdir: str, extra=()):
+    """A CLI case of one process on ``SBG_LOCAL_SHARDS`` shards of the card
+    (the JAX CLI's device count): the JAX CLI's files, byte for byte.
+    Returns (wall, K1 window launches by shard)."""
+    from sboxgates_tpu_torch import cli
+    from sboxgates_tpu_torch.ops import pivot_tile
+
+    mg, h = mesh_goldens(), job_cases()
+    argv, env, devices, procs = mg.CLI_CASES[case]
+    d = os.path.join(outdir, label)
+    t0 = time.perf_counter()
+    with h.environ(dict(env, SBG_LOCAL_SHARDS=str(devices))):
+        rc = cli.main([*argv, *extra, "--device", dev.type, "--output-dir", d])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{label}: rc {rc}")
+    mg.compare_files(case, d)
+    shards = dict(sorted(pivot_tile.shard_launches.items()))
+    log(f"  {label}: {case} {' '.join(extra)} in {wall:.3f} s, the JAX CLI's "
+        f"files at {devices} devices; K1 window launches by shard {shards}")
+    return wall, shards
+
+
+# One rank of a CLI run in a fresh process: argv[1] the checkout, argv[2]
+# the argv (JSON); prints the states its search returned and its K1
+# launches by shard.
+_RANK_PROCESS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from sboxgates_tpu_torch import cli, search
+from sboxgates_tpu_torch.graph.xmlio import state_filename
+from sboxgates_tpu_torch.ops import pivot_tile
+real = search.generate_graph_one_output
+got = []
+def returned(*a, **k):
+    out = real(*a, **k)
+    got.extend(state_filename(s) for s in out)
+    return out
+search.generate_graph_one_output = returned
+rc = cli.main(json.loads(sys.argv[2]))
+print("RANKRESULT " + json.dumps({"rc": rc, "states": got,
+      "shards": pivot_tile.shard_launches,
+      "windows": pivot_tile.launches["packed"]}), flush=True)
+sys.exit(rc)
+"""
+
+#: Per-call limit of phase 14's rank processes.
+RANK_TIMEOUT_S = 240
+
+
+def rank_processes(cmds, envs):
+    """Starts the ranks, waits, kills and reaps what is left; returns (return
+    codes, stdouts, stderrs)."""
+    procs = [subprocess.Popen(c, env=e, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c, e in zip(cmds, envs)]
+    outs, errs = [], []
+    try:
+        for p in procs:
+            try:
+                o, e = p.communicate(timeout=RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                o, e = p.communicate()
+            outs.append(o)
+            errs.append(e)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [p.returncode for p in procs], outs, errs
+
+
+def cli_ranks(dev, argv, outdir, env, rank_env=None, ranks: int = 2):
+    """The port's CLI on ``ranks`` processes of ``dev``; ``rank_env`` adds
+    variables by rank (a card of its own: ``CUDA_VISIBLE_DEVICES``)."""
+    mg = mesh_goldens()
+    port = mg.free_port()
+    cmds = [[sys.executable, "-c", _RANK_PROCESS, ROOT, json.dumps(
+        [*argv, "--device", dev.type, "--output-dir", outdir, "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", str(ranks), "--process-id",
+         str(i)])] for i in range(ranks)]
+    base = {k: v for k, v in os.environ.items() if not k.startswith("SBG_")}
+    envs = [dict(base, **env, **((rank_env or {}).get(i, {})))
+            for i in range(ranks)]
+    return rank_processes(cmds, envs)
+
+
+def rank_result(out: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith("RANKRESULT ")]
+    return json.loads(lines[-1][len("RANKRESULT "):]) if lines else {}
+
+
+def phase_mesh_rates(dev) -> dict:
+    """14e: the whole G = 200 pivot space against a random target through
+    the sharded stream on 1 x 1, 1 x 2 and (two processes over gloo) 2 x 1
+    shards of the card: candidates/s, windows and all-reduces."""
+    out = {}
+    for shards in (1, 2):
+        out[f"1x{shards}"] = _mesh_rate_local(dev, shards)
+    out["2x1"] = mesh_rate_ranks(2)
+    return out
+
+
+def mesh_rate_ranks(ranks: int, own_card: bool = False) -> dict:
+    """:func:`_mesh_rate` on ``ranks`` processes of one shard each (each on
+    a card of its own with ``own_card``, else all on the first): rank 0's
+    figures, every rank's rows checked equal."""
+    mg = mesh_goldens()
+    port = mg.free_port()
+    cmds = [[sys.executable, "-c", _MESH_RATE, ROOT, str(port), str(i),
+             str(ranks)] for i in range(ranks)]
+    base = {k: v for k, v in os.environ.items() if not k.startswith("SBG_")}
+    envs = [dict(base, **({"CUDA_VISIBLE_DEVICES": str(i)} if own_card else {}))
+            for i in range(ranks)]
+    rcs, outs, errs = rank_processes(cmds, envs)
+    if any(rcs):
+        raise AssertionError(f"rates on {ranks} ranks: rcs {rcs}: {errs}")
+    got = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    if any(g["rows"] != got[0]["rows"] for g in got):
+        raise AssertionError(f"rates on {ranks} ranks: the verdict rows differ")
+    backends = sorted({ln.split("collectives on ")[1].split(":")[0]
+                       for e in errs for ln in e.splitlines()
+                       if "collectives on" in ln})
+    return got[0] | {"backends": backends,
+                     "rank_shard_launches": [g["shard_launches"] for g in got]}
+
+
+def _mesh_rate(dev) -> dict:
+    """The sharded pivot stream over the whole G = 200 space on this
+    process's mesh (a warm-up over 200 tiles first)."""
+    import numpy as np
+    import torch
+
+    from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.ops import pivot_tile
+    from sboxgates_tpu_torch.parallel import MeshPlan, make_mesh
+    from sboxgates_tpu_torch.parallel import mesh as pmesh
+    from sboxgates_tpu_torch.search import Options, SearchContext
+    from sboxgates_tpu_torch.search.lut import PivotOperands, pivot_tile_shape
+
+    g = 200
+    st = random_state(g, 11)
+    target = np.random.default_rng(g).integers(
+        0, 2**32, size=8, dtype=np.uint64).astype(np.uint32)
+    mask = tt.mask_table(8)
+    plan = MeshPlan(make_mesh(device="cuda"))
+    ctx = SearchContext(Options(seed=1, lut_graph=True, device="cuda"),
+                        mesh_plan=plan)
+    tl, th = pivot_tile_shape(g)
+    ops = PivotOperands(g, tl, th, [], ctx.device_tables(st), target, mask,
+                        ctx.device)
+    jw, jm = ctx.lut5_tabs()
+    n = plan.n_candidate_shards
+    pmesh.sharded_pivot_stream(plan, *ops.stream_args(), 0,
+                               min(200, ops.t_real), jw, jm, 1, tl=tl, th=th)
+    zero_pivot_counts()
+    pmesh.COLLECTIVES.update(windows=0, window_reduces=0, gathers=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = pmesh.sharded_pivot_stream(plan, *ops.stream_args(), 0, ops.t_real,
+                                      jw, jm, 1, tl=tl, th=th)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cand = math.comb(g, 5)
+    if (rows[:, 0] != 0).any() or int(rows[0, 9]) < ops.t_real:
+        raise AssertionError(f"G={g}: the sharded sweep returned {rows.tolist()}")
+    return {"shards": n, "seconds": wall, "cand_per_s": cand / wall,
+            "windows": pmesh.COLLECTIVES["windows"],
+            "window_reduces": pmesh.COLLECTIVES["window_reduces"],
+            "gathers": pmesh.COLLECTIVES["gathers"],
+            "tiles": ops.t_real,
+            "shard_launches": dict(sorted(pivot_tile.shard_launches.items())),
+            "rows": rows.tolist()}
+
+
+# One rank of a rates topology of one shard per process: argv[1] the
+# checkout, argv[2] the coordinator's port, argv[3] the rank, argv[4] the
+# ranks; prints _mesh_rate's JSON last.
+_MESH_RATE = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+os.environ["SBG_LOCAL_SHARDS"] = "1"
+import torch
+import chip_smoke
+from sboxgates_tpu_torch.parallel import distributed as dist
+dist.initialize("127.0.0.1:" + sys.argv[2], int(sys.argv[4]), int(sys.argv[3]),
+                device="cuda")
+r = chip_smoke._mesh_rate(torch.device("cuda", 0))
+dist.barrier("rate-done")
+dist.shutdown()
+print(json.dumps(r), flush=True)
+"""
+
+
+def phase_cards(dev) -> dict:
+    """Phase 15 (``--cards``, every card of one host, at least two): 15a the
+    G = 99 resume (device route) on one process over the n cards, a shard
+    per card; 15b the same on n processes of one card each, whose
+    collectives run on NCCL; both the JAX CLI's files at n devices.  15c
+    the whole G = 200 pivot space on 1 x 1, 1 x n and n x 1 (NCCL)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    mg = mesh_goldens()
+    case, pcase = f"g99_d{n}_dev", f"g99_p{n}x1_dev"
+    if n < 2 or case not in mg.CLI_CASES:
+        raise AssertionError(f"--cards: no golden for {n} cards")
+    t_phase = time.perf_counter()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    log(f"phase 15: {n} cards: {cards}")
+    res: dict = {}
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        zero_pivot_counts()
+        wall, shards = run_mesh_case(dev, "15a", case, outdir)
+        if sorted(shards) != list(range(n)) or min(shards.values()) < 1:
+            raise AssertionError(f"15a: K1 windows by shard {shards}")
+        res["15a"] = {"wall": wall, "shards": shards}
+        argv, env, _, _ = mg.CLI_CASES[pcase]
+        d = os.path.join(outdir, "15b")
+        t0 = time.perf_counter()
+        rcs, outs, errs = cli_ranks(
+            dev, argv, d, env, ranks=n,
+            rank_env={i: {"CUDA_VISIBLE_DEVICES": str(i)} for i in range(n)})
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            raise AssertionError(f"15b: rcs {rcs}: {errs}")
+        mg.compare_files(pcase, d)
+        ranks = [rank_result(o) for o in outs]
+        lines = [ln for e in errs for ln in e.splitlines()
+                 if "collectives on" in ln]
+        if any(r["states"] != ranks[0]["states"] for r in ranks) or \
+                len(lines) != n or not all("on nccl" in ln for ln in lines):
+            raise AssertionError(f"15b: {ranks} {lines}")
+        res["15b"] = {"wall": wall, "shards": [r["shards"] for r in ranks]}
+        log(f"  15b {n} ranks, one card each: {wall:.3f} s, every rank "
+            f"{ranks[0]['states']}, the JAX CLI's {n} x 1 files; K1 windows "
+            f"by rank {res['15b']['shards']}; {lines[0]}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    rates = {"1x1": _mesh_rate_local(dev, 1), f"1x{n}": _mesh_rate_local(dev, n),
+             f"{n}x1": mesh_rate_ranks(n, own_card=True)}
+    one = rates["1x1"]["cand_per_s"]
+    for topo, r in rates.items():
+        log(f"  15c G=200 sharded sweep {topo}: {r['cand_per_s']:.6e} cand/s "
+            f"({r['cand_per_s'] / one:.3f}x 1x1), {r['seconds']:.5f} s, "
+            f"{r['windows']} windows, {r['window_reduces']} all-reduces, "
+            f"{r['gathers']} row gathers, backends {r.get('backends', '-')}, "
+            f"K1 by shard {r.get('rank_shard_launches', r['shard_launches'])}")
+    res["rates"] = rates
+    log(f"phase 15 cards: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def _mesh_rate_local(dev, shards: int) -> dict:
+    os.environ["SBG_LOCAL_SHARDS"] = str(shards)
+    try:
+        return _mesh_rate(dev)
+    finally:
+        os.environ.pop("SBG_LOCAL_SHARDS", None)
+
+
+def phase_mesh(dev, on_path) -> dict:
+    """Phase 14: several shards and processes on the one card.  14a the CLI
+    on two shards of the card (the G = 99 resume on both backends and DES
+    S1, device route), 14b two processes on the card over gloo (the G = 99
+    resume), 14c the job-sharded sweep killed and resumed and the
+    replicated abort (exhaust) on two ranks, 14d the fleet on 2 shards
+    split (1, 2), 14e the sharded sweep's rates."""
+    mg = mesh_goldens()
+    t_phase = time.perf_counter()
+    res: dict = {"paths": {}, "shards": {}}
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        for label, case, extra in (
+            ("14a_g99_packed", "g99_d2_dev", ("--pivot-backend", "packed")),
+            ("14a_g99_pre", "g99_d2_dev", ("--pivot-backend", "pre")),
+            ("14a_des_s1", "des_s1_d2_dev", ()),
+            ("14d_fleet", "fleet_c2_d2_dev", ()),
+        ):
+            box = {}
+            res["paths"][label] = on_path(label, lambda c=case, lb=label, x=extra:
+                                          box.update(r=run_mesh_case(
+                                              dev, lb, c, outdir, x)))
+            res["shards"][label] = box["r"][1]
+        for label, kern in (("14a_g99_packed", "pivot_window"),
+                            ("14a_g99_pre", "pivot_pre")):
+            sh = res["shards"][label]
+            if sorted(sh) != [0, 1] or min(sh.values()) < 1 or \
+                    sum(sh.values()) != res["paths"][label][kern]:
+                raise AssertionError(f"{label}: {kern} launches by shard {sh}, "
+                                     f"{res['paths'][label][kern]} in all")
+        # 14b: two ranks on the card.
+        argv, env, _, _ = mg.CLI_CASES["g99_p2x1_dev"]
+        d = os.path.join(outdir, "14b")
+        t0 = time.perf_counter()
+        rcs, outs, errs = cli_ranks(dev, argv, d, env)
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            raise AssertionError(f"14b: rcs {rcs}: {errs}")
+        mg.compare_files("g99_p2x1_dev", d)
+        ranks = [rank_result(o) for o in outs]
+        if ranks[0]["states"] != ranks[1]["states"] or not ranks[0]["states"]:
+            raise AssertionError(f"14b: the ranks' results differ: {ranks}")
+        for i, r in enumerate(ranks):
+            if list(r["shards"]) != [str(i)] or r["shards"][str(i)] < 1:
+                raise AssertionError(f"14b rank {i}: K1 by shard {r['shards']}")
+        res["shards"]["14b"] = {k: v for r in ranks for k, v in r["shards"].items()}
+        backend_lines = [ln for e in errs for ln in e.splitlines()
+                         if "collectives on" in ln]
+        log(f"  14b two ranks on the card: {wall:.3f} s, both ranks "
+            f"{ranks[0]['states']}, the JAX CLI's 2 x 1 files; K1 windows by "
+            f"shard {res['shards']['14b']}; {backend_lines}")
+        # 14c: the killed job-sharded sweep and the replicated abort.
+        argv, env, _, _ = mg.CLI_CASES["shard_sweep_p2"]
+        d = os.path.join(outdir, "14c")
+        t0 = time.perf_counter()
+        rcs, _, errs = cli_ranks(dev, argv, d, env,
+                                 rank_env={1: {"SBG_FAULTS": "search.round:crash@3"}})
+        if rcs[1] != 17:
+            raise AssertionError(f"14c: rank 1 exited {rcs[1]}, not 17: {errs}")
+        rcs, outs, errs = cli_ranks(dev, ["--resume-run", d], d, {})
+        if any(rcs):
+            raise AssertionError(f"14c resume: rcs {rcs}: {errs}")
+        mg.compare_files("shard_sweep_p2", d, xml_only=True)
+        kill_wall = time.perf_counter() - t0
+        port = mg.free_port()
+        worker = os.path.join(ROOT, "tests", "torch_mesh_worker.py")
+        base = {k: v for k, v in os.environ.items() if not k.startswith("SBG_")}
+        t0 = time.perf_counter()
+        rcs, outs, errs = rank_processes(
+            [[sys.executable, worker, "degrade", str(i), str(port), "1", "2",
+              "exhaust", dev.type] for i in range(2)], [base, base])
+        abort_wall = time.perf_counter() - t0
+        lines = [mg.result_lines(o, "degrade") for o in outs]
+        if any(rcs) or lines != mg.golden_lines("abort_2x1_exhaust"):
+            raise AssertionError(f"14c abort: rcs {rcs}, lines {lines}: {errs}")
+        log(f"  14c job-sharded sweep killed (rank 1, exit 17) and resumed on "
+            f"the card to the uninterrupted run's files: {kill_wall:.3f} s; "
+            f"replicated abort (exhaust) on two ranks of the card: the JAX "
+            f"workers' lines {lines[0]}, {abort_wall:.3f} s")
+        res["rates"] = phase_mesh_rates(dev)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    one = res["rates"]["1x1"]["cand_per_s"]
+    for topo, r in res["rates"].items():
+        per_window = (r["window_reduces"] / r["windows"]) if r["windows"] else 0
+        log(f"  14e G=200 sharded sweep {topo}: {r['cand_per_s']:.6e} cand/s "
+            f"({r['cand_per_s'] / one:.3f}x 1x1), {r['seconds']:.5f} s, "
+            f"{r['windows']} windows, {r['window_reduces']} all-reduces "
+            f"({per_window:.3f} per window), {r['gathers']} row gathers, "
+            f"K1 by shard {r['shard_launches']}")
+    log(f"phase 14 mesh: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 KERNELS = {
     "lut5_filter": ("cuda", "sboxgates_tpu_torch/csrc/lut5_filter.cu",
                     "sboxgates_tpu/ops/pallas_filter.py:58", "des_s1"),
@@ -2896,9 +3297,15 @@ def main() -> int:
         print(gpu_line(), flush=True)
         print(json.dumps(phase_paths(dev)), flush=True)
         return 0
-    if "--rounds" in sys.argv[1:] or "--net" in sys.argv[1:]:
-        # Phase 12 (or, with --net, phase 13) alone, its runs counted as
-        # in a whole run; no result line.
+    if "--cards" in sys.argv[1:]:
+        # Phase 15 alone, on every card of the host (four cards); no
+        # result line.
+        print(gpu_line(), flush=True)
+        phase_cards(dev)
+        return 0
+    if any(a in sys.argv[1:] for a in ("--rounds", "--net", "--mesh")):
+        # Phase 12 (or, with --net, phase 13; with --mesh, phase 14) alone,
+        # its runs counted as in a whole run; no result line.
         from sboxgates_tpu_torch.ops import lut5_filter as _l5
 
         def counted_path(name, drive) -> dict:
@@ -2917,6 +3324,8 @@ def main() -> int:
         print(gpu_line(), flush=True)
         if "--net" in sys.argv[1:]:
             phase_net(dev, counted_path)
+        elif "--mesh" in sys.argv[1:]:
+            phase_mesh(dev, counted_path)
         else:
             phase_rounds(dev, counted_path, extended=True)
         return 0
@@ -3103,6 +3512,9 @@ def main() -> int:
             paths[label] = val[0]
     # Phase 13: the HTTP admission front door.
     paths["net_chain8_dev"] = phase_net(dev, on_path)["counts"]
+    # Phase 14: several shards and processes on the card.
+    mesh = phase_mesh(dev, on_path)
+    paths.update(mesh["paths"])
     if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
         raise AssertionError("a search path launched a single-tile K1 or K2")
     for name in LANE_KERNELS:
@@ -3134,6 +3546,17 @@ def main() -> int:
                      "device_ms_per_tile": None if r["device_ms"] is None
                      else r["device_ms"] / r["tiles"],
                      "bound_ms_per_tile": bound_ms / r["tiles"]}
+        if name in ("pivot_window", "pivot_pre"):
+            # Phase 14: the window launches of each mesh shard, by path
+            # (14b's two ranks in their own processes, 14e's rates).
+            per_tile["shard_launches_by_path"] = {
+                p: sh for p, sh in mesh["shards"].items()
+                if (name == "pivot_pre") == p.endswith("_pre")}
+            if name == "pivot_window":
+                per_tile["mesh_rates"] = {
+                    t: {k: r[k] for k in ("shards", "cand_per_s", "windows",
+                                          "window_reduces", "shard_launches")}
+                    for t, r in mesh["rates"].items()}
         kernels.append(per_tile | {
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": paths[home][name],

@@ -37,6 +37,19 @@ or the JAX CLI's, to the files the uninterrupted run writes.
 chunk stream), and ``SBG_FAULTS`` the fault sites
 (``resilience/faults.py``).
 
+Several shards and processes, as in the JAX CLI: ``--mesh`` shards the
+candidate sweeps over every visible card (``SBG_LOCAL_SHARDS=N`` sets the
+local shard count, N shards taking the devices in turn: ``parallel/``),
+``--coordinator HOST:PORT --num-processes N --process-id I`` (or the JAX
+package's ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+``JAX_PROCESS_ID``) joins N processes into one ``torch.distributed``
+group whose mesh spans every rank's shards (rank 0 writes the files), and
+``--shard-sweep`` gives each process its slice of a several-box or
+permutation sweep instead (journals under ``shard-NN/``);
+``--fleet-candidates C`` pads the fleet's jobs buckets to the n/C job
+shards of the JAX package's (jobs, candidates) fleet mesh, so the seed
+draws are the JAX CLI's; every fleet lane still runs on the first card.
+
 The job axis, as in the JAX CLI: several S-box files or ``--permute-sweep``
 run a sweep of jobs (``search/multibox.py``; states in per-box or ``pXX/``
 subdirectories), ``--batch-iterations`` runs the ``-i`` restarts as one
@@ -131,16 +144,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "concurrently and their same-kind sweeps, node heads "
                         "and streams alike, merge into ONE launch of the "
                         "kernels' lane forms per round")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard candidate sweeps over all visible devices "
+                        "(SBG_LOCAL_SHARDS=N: N local shards instead)")
     p.add_argument("--fleet-candidates", type=int, default=1, metavar="C",
-                   help="candidate-axis shards inside each fleet lane "
-                        "(default 1; only 1 is supported: the multi-card "
-                        "fleet mesh is not ported)")
+                   help="the JAX CLI's (jobs, candidates) fleet split of "
+                        "the local shards (n/C, C): the jobs buckets are "
+                        "padded to multiples of the n/C job shards, so the "
+                        "seed draws match the JAX CLI's; every fleet lane "
+                        "still runs on the first card (default 1; must "
+                        "divide the local shard count)")
     p.add_argument("--fleet-max-wave", type=int, default=256, metavar="N",
                    help="jobs per fleet wave (resident-thread cap, "
                         "default 256).  The wave is the unit per-job "
                         "seeds are drawn in, so this shapes the "
                         "deterministic draw stream and is journaled for "
                         "--resume-run")
+    p.add_argument("--shard-sweep", action="store_true",
+                   help="several processes: partition the multi-box / "
+                        "permute sweep across processes (each searches "
+                        "its own slice on its local shards) instead of "
+                        "running every search across the whole group; "
+                        "with --fleet, each process runs its slice as a "
+                        "local fleet")
     p.add_argument("--serial-mux", action="store_true",
                    help="disable concurrent exploration of mux select bits "
                         "(on by default on a card, off on the CPU; one "
@@ -274,17 +300,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reported in the heartbeat start line's "
                         "config).  Observation-only: results are "
                         "bit-identical with or without it")
-    # The JAX CLI's flags of the parts not ported yet (several cards):
-    # each is refused in one line.
-    for flag, kw in (("--mesh", dict(action="store_true")),
-                     ("--shard-sweep", dict(action="store_true")),
-                     ("--coordinator", dict(metavar="ADDR")),
-                     ("--num-processes", dict(metavar="N")),
-                     ("--process-id", dict(metavar="N"))):
-        p.add_argument(flag, dest="unported_" + flag[2:].replace("-", "_"),
-                       default=None,
-                       help="not ported yet: refused (python -m sboxgates_tpu "
-                            "runs it)", **kw)
+    p.add_argument("--coordinator", metavar="HOST:PORT", default=None,
+                   help="several processes: rank 0's address for the "
+                        "torch.distributed group (tcp:// init; or set "
+                        "JAX_COORDINATOR_ADDRESS); implies --mesh")
+    p.add_argument("--num-processes", type=int, default=None, metavar="N",
+                   help="several processes: total number of processes")
+    p.add_argument("--process-id", type=int, default=None, metavar="I",
+                   help="several processes: this process's rank (0-based)")
     p.add_argument("--metrics-interval", type=float, default=60.0,
                    metavar="S",
                    help="telemetry heartbeat period in seconds (default "
@@ -345,14 +368,6 @@ JOURNAL_KEY_DEFAULTS = {
     "serve_token_file": None,
 }
 
-#: The JAX CLI's flags the port has not ported, with the value that CLI
-#: records when they are not given.  A journal that recorded another value
-#: is refused by --resume-run, one line naming the setting.
-UNPORTED_KEYS = {
-    "mesh": False,
-    "shard_sweep": False,
-}
-
 
 def _err(msg: str) -> int:
     print(msg, file=sys.stderr)
@@ -365,6 +380,9 @@ def _resume_config(args) -> Optional[int]:
     code when the run must stop, else None with ``args.journal`` set."""
     from .resilience.journal import JOURNAL_VERSION, JournalError, SearchJournal
 
+    # The journaled configuration decides whether this is a sharded
+    # resume; an explicit --shard-sweep only cross-checks it.
+    shard_requested = args.shard_sweep
     try:
         journal = SearchJournal.resume(args.resume_run)
     except JournalError as e:
@@ -392,6 +410,13 @@ def _resume_config(args) -> Optional[int]:
             f"setting {e}; it was written by an incompatible build — "
             "re-run the search instead of resuming."
         )
+    if shard_requested and not args.shard_sweep:
+        return _err(
+            f"Error: journal in {args.resume_run} records a "
+            "non-sharded run, but --shard-sweep was given; resume "
+            "without it (the journaled configuration decides the "
+            "execution mode)."
+        )
     if args.serve:
         # The run being resumed was a serve run: its resume is per job.
         return _err(
@@ -399,17 +424,6 @@ def _resume_config(args) -> Optional[int]:
             "serve-mode run; re-run --serve with the same inputs "
             "and --output-dir instead of --resume-run (each job "
             "resumes bit-identically from its per-job journal)."
-        )
-    refused = [(k, getattr(args, k)) for k, v in UNPORTED_KEYS.items()
-               if getattr(args, k) != v]
-    if args.fleet_candidates != 1:
-        refused.append(("fleet_candidates", args.fleet_candidates))
-    if refused:
-        key, value = refused[0]
-        return _err(
-            f"Error: journal in {args.resume_run} records {key}="
-            f"{value!r}, which this port does not run; resume it with "
-            "python -m sboxgates_tpu."
         )
     if journal.complete:
         print(f"Run in {args.resume_run} is already complete; nothing to resume.")
@@ -489,19 +503,10 @@ def _probe_device(name: str) -> Optional[str]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    for key, value in sorted(vars(args).items()):
-        if key.startswith("unported_") and value not in (None, False):
-            flag = "--" + key[len("unported_"):].replace("_", "-")
-            return _err(f"Error: {flag} is not ported yet; run it with "
-                        "python -m sboxgates_tpu.")
     # Telemetry files (heartbeat, metrics.json, flight dumps) live with the
     # journal in an explicit --output-dir (--resume-run implies one); the
     # cwd default must not sprout them wherever the tool runs.
     outdir_explicit = args.output_dir is not None or args.resume_run is not None
-    # The JAX CLI's values of the flags the port has not ported: the
-    # journal records them.
-    for key, value in UNPORTED_KEYS.items():
-        setattr(args, key, value)
     # The result store: SBG_RESULT_STORE applies only when the flag is
     # absent (an explicit empty string disables it); a resume restores the
     # journaled value instead.
@@ -551,6 +556,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _err("--permute-sweep takes a single S-box file and no -g.")
     if args.permute_sweep and args.permute:
         return _err("--permute-sweep replaces -p; do not combine them.")
+    if args.shard_sweep and not (multibox or args.permute_sweep):
+        return _err(
+            "--shard-sweep requires a sweep to shard: multiple S-box "
+            "files or --permute-sweep."
+        )
     if args.fleet and args.serial_jobs:
         return _err(
             "--fleet and --serial-jobs are incompatible: the fleet's "
@@ -577,6 +587,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             (args.convert_dot, "-d"),
             (args.graph is not None, "-g"),
             (args.permute_sweep, "--permute-sweep"),
+            (args.shard_sweep, "--shard-sweep"),
+            (args.mesh, "--mesh"),
             (args.fleet, "--fleet"),
             (args.batch_iterations, "--batch-iterations"),
             (args.serial_jobs, "--serial-jobs"),
@@ -639,12 +651,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _err(f"Bad metrics interval value: {args.metrics_interval}")
     if args.status_port is not None and not (0 <= args.status_port <= 65535):
         return _err(f"Bad status port value: {args.status_port}")
-    if args.fleet_candidates != 1:
-        return _err(
-            f"Error: --fleet-candidates {args.fleet_candidates} shards fleet "
-            "lanes over several cards, which is not ported yet (use 1, or "
-            "python -m sboxgates_tpu)."
-        )
 
     # Conversion mode: deserialize -> emit, no search (sboxgates.c:1097-1114).
     if args.convert_c or args.convert_dot:
@@ -669,6 +675,82 @@ def main(argv: Optional[List[str]] = None) -> int:
     native = not os.environ.get("SBG_DISABLE_NATIVE")
     if args.output_dir is None:
         args.output_dir = "."
+    # Telemetry (heartbeat, metrics.json, flight dumps) is per rank: captured
+    # before the non-primary ranks drop their output directory.
+    tele_root = args.output_dir if outdir_explicit else None
+
+    multiprocess = (
+        args.coordinator is not None
+        or args.num_processes is not None
+        or "JAX_COORDINATOR_ADDRESS" in os.environ
+    )
+    if args.serve and multiprocess:
+        return _err(
+            "--serve is a single-process orchestrator over the local "
+            "warm device pool; drop the multi-host flags (shard tenants "
+            "across serve processes instead)."
+        )
+    log = print
+    if args.fleet and args.mesh:
+        return _err(
+            "--fleet builds its own (jobs, candidates) mesh over the "
+            "local devices; drop --mesh (use --fleet-candidates to "
+            "shard candidates inside the fleet lanes)."
+        )
+    if args.fleet and multiprocess and not args.shard_sweep:
+        return _err(
+            "--fleet is process-local; a multi-host fleet needs "
+            "--shard-sweep, which composes one local fleet per process "
+            "over its slice of the sweep."
+        )
+    fleet_sharded = args.fleet and args.shard_sweep
+    from .parallel import distributed as dist
+
+    if multiprocess:
+        # The group first (the card is probed after it); the mesh then
+        # spans every rank's shards (the reference's MPI_Init and worker
+        # topology, sboxgates.c:1045-1057).
+        try:
+            dist.initialize(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device)
+        except (ValueError, RuntimeError) as e:
+            return _err(f"Error: {(str(e).splitlines() or ['unknown'])[0]}")
+        # A fleet-sharded run keeps mesh=False: each process owns a
+        # local fleet, not a candidate mesh.
+        if not fleet_sharded:
+            args.mesh = True
+        args.seed = dist.shared_seed(args.seed)
+        if args.shard_sweep:
+            # Job sharding: every rank owns its slice's side effects; its
+            # lines carry its rank (the reference's per-rank find lines).
+            _rank = dist.rank()
+            log = lambda s: print(f"[{_rank:4d}] {s}")  # noqa: E731
+        elif not dist.is_primary():
+            # Side effects belong to rank 0 (the reference's rank-0-gated
+            # printing and save_state).
+            args.output_dir = None
+            log = lambda s: None  # noqa: E731
+    try:
+        return _search(args, native, multiprocess, log, tele_root)
+    finally:
+        if multiprocess:
+            # Rank 0 hosts the group's store: it leaves last.
+            try:
+                dist.barrier("exit", timeout_s=EXIT_BARRIER_S)
+            except TimeoutError:
+                pass
+            dist.shutdown()
+
+
+#: How long rank 0 waits at exit for the other ranks (a rank that died
+#: never comes).
+EXIT_BARRIER_S = 10.0
+
+
+def _search(args, native: bool, multiprocess: bool, log, tele_root) -> int:
+    """The search of :func:`main` once the flags are checked and the
+    process group (if any) joined."""
+    from .parallel import distributed as dist
 
     try:
         sbox, num_inputs = load_sbox(args.input[0], args.permute)
@@ -696,6 +778,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     if problem is not None:
         return _err(problem)
 
+    # Device plans build (and validate) before the journal: a refused
+    # configuration must not leave a journal of a run that never started.
+    mesh_plan = fleet_plan = None
+    try:
+        from .parallel import mesh as _mesh
+
+        if args.fleet:
+            local = _mesh.local_devices(args.device)
+            if len(local) > 1 or args.fleet_candidates > 1:
+                fleet_plan = _mesh.FleetPlan(_mesh.make_fleet_mesh(
+                    local, candidates=args.fleet_candidates))
+        elif args.shard_sweep or args.mesh:
+            # A job-sharded sweep runs each slice on its local shards; a
+            # plain --mesh spans every rank's.
+            mesh_plan = _mesh.MeshPlan(_mesh.make_mesh(
+                _mesh.local_devices(args.device) if args.shard_sweep
+                else None, device=args.device))
+    except (ValueError, RuntimeError) as e:
+        return _err(f"Error: {e}")
+
+    journaling = args.output_dir is not None
     if args.seed is None:
         # Materialized so the journal can reproduce the run.
         args.seed = int.from_bytes(os.urandom(4), "little")
@@ -728,23 +831,47 @@ def main(argv: Optional[List[str]] = None) -> int:
         chain_rounds=args.chain_rounds,
         result_store=args.result_store,
     )
-    try:
-        ctx = SearchContext(opt)
-    except RuntimeError as e:
-        return _err(f"Error: {e}")
-    if ctx.result_store is not None:
-        note = " (read-only)" if ctx.result_store.readonly else ""
-        print(f"Result store: {args.result_store}{note}")
 
-    # The journal's recorded configuration (the JAX CLI's): also the
-    # heartbeat start line's config.
+    # The journal's recorded configuration (the JAX CLI's), also the
+    # multi-process start-up digest and the heartbeat start line's config.
     run_config = {key: getattr(args, key) for key in JOURNAL_CONFIG_KEYS}
     run_config["input"] = [os.path.abspath(p) for p in args.input]
     run_config["graph"] = (
         os.path.abspath(args.graph) if args.graph is not None else None
     )
-    tele = _Telemetry(ctx, args, run_config,
-                      args.output_dir if outdir_explicit else None)
+    rc = _open_journals(args, run_config, journaling, multiprocess)
+    if rc is not None:
+        return rc
+    journal = args.journal
+    if multiprocess:
+        # Every rank runs the same journaled configuration (inputs
+        # included), or the first collective would diverge silently.
+        import hashlib
+        import json as _json
+
+        digest = hashlib.sha256(
+            _json.dumps(run_config, sort_keys=True, default=str).encode()
+        ).hexdigest()
+        try:
+            dist.run_config_check(digest)
+        except RuntimeError as e:
+            return _err(f"Error: {e}")
+    try:
+        ctx = SearchContext(opt, mesh_plan=mesh_plan, fleet_plan=fleet_plan)
+    except (RuntimeError, ValueError) as e:
+        return _err(f"Error: {e}")
+    if ctx.result_store is not None:
+        note = " (read-only)" if ctx.result_store.readonly else ""
+        log(f"Result store: {args.result_store}{note}")
+
+    rank = dist.rank() if multiprocess else 0
+    tele_dir = tele_root
+    if tele_root is not None and multiprocess and (args.shard_sweep or rank):
+        from .resilience.journal import shard_dir
+
+        tele_dir = shard_dir(tele_root, rank)
+    tele = _Telemetry(ctx, args, run_config, tele_dir, rank=rank,
+                      multiprocess=multiprocess, log=log)
     try:
         if args.graph is None:
             st = State.init_inputs(num_inputs)
@@ -753,39 +880,33 @@ def main(argv: Optional[List[str]] = None) -> int:
                 st = load_state(args.graph)
             except (OSError, StateLoadError) as e:
                 return _err(f"Error when reading state file {args.graph}: {e}")
-
-        journal = args.journal
-        if journal is None:
-            from .resilience.journal import SearchJournal
-
-            journal = SearchJournal.start(args.output_dir, config=run_config)
-        sweep = multibox or args.permute_sweep
+        sweep = len(args.input) > 1 or args.permute_sweep
         if args.graph is not None:
-            print(f"Loaded {args.graph}.")
+            log(f"Loaded {args.graph}.")
 
         if args.verbose >= 1:
             # The reference's listing, trailing spaces included
             # (sboxgates.c:1080-1094).
-            print("Available gates: NOT " + "".join(
+            log("Available gates: NOT " + "".join(
                 bf.GATE_NAMES[f.fun] + " " for f in ctx.avail_gates))
-            print("Generated gates: " + "".join(
+            log("Generated gates: " + "".join(
                 bf.GATE_NAMES[f.fun] + " " for f in ctx.avail_not))
-            print("Generated 3-input gates: " + "".join(
+            log("Generated 3-input gates: " + "".join(
                 "%02x " % f.fun for f in ctx.avail_3))
         if args.serve:
             return _run_serve(ctx, args, journal, tele)
         if sweep:
-            return _run_sweep(ctx, args, sbox, num_inputs, journal, tele)
+            return _run_sweep(ctx, args, sbox, num_inputs, journal, tele, log)
 
         if args.single_output != -1:
             generate_graph_one_output(
                 ctx, st, targets, args.single_output, save_dir=args.output_dir,
-                journal=journal,
+                log=log, journal=journal,
             )
         else:
             generate_graph(ctx, st, targets, save_dir=args.output_dir,
-                           journal=journal)
-        return _finish(ctx, args, tele)
+                           log=log, journal=journal)
+        return _finish(ctx, args, tele, log)
     except BaseException as e:
         if not isinstance(e, SystemExit):
             # Dump before the teardown: the heartbeat's incident hook is
@@ -801,16 +922,74 @@ def main(argv: Optional[List[str]] = None) -> int:
         tele.teardown()
 
 
-def _finish(ctx, args, tele) -> int:
+def _open_journals(args, run_config, journaling: bool,
+                   multiprocess: bool) -> Optional[int]:
+    """Sets ``args.journal``: the run journal (rank 0 writes it; a rank
+    without an output directory keeps a resumed journal read-only, so it
+    restores the primary's beam and PRNG position without writing), and
+    for a job-sharded sweep this rank's own journal under ``shard-NN/``
+    (checkpoint names relative to the run's directory).  Returns an exit
+    code when the run must stop."""
+    from .parallel import distributed as dist
+    from .resilience.journal import JournalError, SearchJournal, shard_dir
+
+    resume = args.resume_run is not None
+    journal = args.journal
+    journal_config = None
+    if journaling:
+        journal_config = dict(run_config)
+        if args.shard_sweep:
+            journal_config["shard_processes"] = (
+                dist.world_size() if multiprocess else 1)
+    if journaling and not resume:
+        # The run journal is rank 0's (config-only for a job-sharded
+        # sweep: each rank's progress goes to its shard journal).
+        if not multiprocess or dist.is_primary():
+            journal = SearchJournal.start(args.output_dir,
+                                          config=journal_config)
+    elif journal is not None and not journaling:
+        journal.readonly = True
+    elif not journaling:
+        journal = None
+    if journaling and args.shard_sweep:
+        r = dist.rank() if multiprocess else 0
+        nproc = dist.world_size() if multiprocess else 1
+        if resume:
+            rec = (journal.config if journal is not None else {}).get(
+                "shard_processes")
+            if rec != nproc:
+                return _err(
+                    f"Error: journal in {args.resume_run} records a "
+                    f"{rec}-process --shard-sweep run; resume with "
+                    f"the same process count (this run has {nproc})."
+                )
+        scfg = dict(journal_config, shard_index=r)
+        sdir = shard_dir(args.output_dir, r)
+        if resume:
+            try:
+                journal = SearchJournal.resume(sdir, ckpt_root=args.output_dir)
+            except JournalError:
+                # This rank died before its shard journal existed: its
+                # slice reruns from the start, deterministically.
+                journal = SearchJournal.start(sdir, config=scfg,
+                                              ckpt_root=args.output_dir)
+        else:
+            journal = SearchJournal.start(sdir, config=scfg,
+                                          ckpt_root=args.output_dir)
+    args.journal = journal
+    return None
+
+
+def _finish(ctx, args, tele, log=print) -> int:
     tele.teardown()
     if args.verbose >= 2:
-        print("")
-        print("stats: " + " ".join(
+        log("")
+        log("stats: " + " ".join(
             f"{k}={v}" for k, v in sorted(ctx.stats.items())
         ))
         # The JAX CLI's per-phase report.
-        print("")
-        print(ctx.prof.report(ctx.stats))
+        log("")
+        log(ctx.prof.report(ctx.stats))
     return 0
 
 
@@ -879,14 +1058,16 @@ def _run_serve(ctx, args, journal, tele) -> int:
     return _finish(ctx, args, tele)
 
 
-def _run_sweep(ctx, args, sbox, num_inputs, journal, tele) -> int:
+def _run_sweep(ctx, args, sbox, num_inputs, journal, tele, log=print) -> int:
     """Several S-box files or ``--permute-sweep``: the sweep of jobs of
-    :mod:`.search.multibox` (serial with ``--serial-jobs``, a fleet with
-    ``--fleet``, else the drivers' default), states in per-box (``pXX/``)
-    subdirectories of the output directory."""
+    :mod:`.search.multibox` (serial with ``--serial-jobs`` or a mesh, a
+    fleet with ``--fleet``, else the drivers' default), states in per-box
+    (``pXX/``) subdirectories of the output directory.  With
+    ``--shard-sweep`` this process searches its slice only."""
     from .search.multibox import (
         load_box_jobs,
         permute_sweep_jobs,
+        process_slice,
         search_boxes_all_outputs,
         search_boxes_one_output,
     )
@@ -900,21 +1081,29 @@ def _run_sweep(ctx, args, sbox, num_inputs, journal, tele) -> int:
         return _err("Error when opening target S-box file.")
     except SboxError as e:
         return _err(str(e))
-    batched = "fleet" if args.fleet else False if args.serial_jobs else None
+    if args.shard_sweep:
+        try:
+            boxes = process_slice(boxes)
+        except ValueError as e:
+            return _err(f"Error: {e}")
+    batched = (
+        "fleet" if args.fleet
+        else False if (args.serial_jobs or args.mesh) else None
+    )
     try:
         if args.single_output != -1:
             search_boxes_one_output(
                 ctx, boxes, args.single_output, save_dir=args.output_dir,
-                batched=batched, journal=journal,
+                log=log, batched=batched, journal=journal,
             )
         else:
             search_boxes_all_outputs(
-                ctx, boxes, save_dir=args.output_dir, batched=batched,
-                journal=journal,
+                ctx, boxes, save_dir=args.output_dir, log=log,
+                batched=batched, journal=journal,
             )
     except ValueError as e:
         return _err(f"Error: {e}")
-    return _finish(ctx, args, tele)
+    return _finish(ctx, args, tele, log)
 
 
 class _Telemetry:
@@ -929,7 +1118,8 @@ class _Telemetry:
     #: SIGTERM-to-SIGKILL window is typically 15-30 s).
     SIGNAL_DUMP_JOIN_S = 15.0
 
-    def __init__(self, ctx, args, run_config: dict, tele_dir: Optional[str]):
+    def __init__(self, ctx, args, run_config: dict, tele_dir: Optional[str],
+                 rank: int = 0, multiprocess: bool = False, log=print):
         from .telemetry import flight as _flight
         from .telemetry.heartbeat import Heartbeat
         from .telemetry.status import StatusServer
@@ -937,6 +1127,9 @@ class _Telemetry:
         self.ctx = ctx
         self.args = args
         self.tele_dir = tele_dir
+        self.rank = rank
+        self.multiprocess = multiprocess
+        self.log = log
         self._done = False
         #: Run on SIGTERM before the run's own dump (the serve drain).
         self.drain_hooks: List = []
@@ -947,17 +1140,17 @@ class _Telemetry:
                 extra={"engine": ctx.status_state},
                 gates_fn=lambda: ctx.last_dispatch_gates,
             ).start()
-            print("Status endpoint on "
-                  f"http://127.0.0.1:{self.status_server.port}/status")
+            log("Status endpoint on "
+                f"http://127.0.0.1:{self.status_server.port}/status")
         self.heartbeat = None
         if tele_dir is not None:
-            _flight.configure(tele_dir)
+            _flight.configure(tele_dir, rank=rank)
             hb_config = run_config
             if self.status_server is not None:
                 # A copy: the journal's config never records the port.
                 hb_config = dict(run_config, status_port=self.status_server.port)
             self.heartbeat = Heartbeat(
-                ctx.stats, tele_dir, interval_s=args.metrics_interval, rank=0,
+                ctx.stats, tele_dir, interval_s=args.metrics_interval, rank=rank,
                 resume=args.resume_run is not None, run_config=hb_config,
             ).start()
         # Preemption delivers SIGTERM before the kill: the dump and the
@@ -1039,10 +1232,15 @@ class _Telemetry:
         if self.heartbeat is not None:
             self.heartbeat.stop()
         if self.args.trace is not None:
-            out = self.args.trace or os.path.join(
+            out = self.args.trace
+            if out and self.multiprocess:
+                # One FILE for every rank: each writes its own.
+                stem, ext = os.path.splitext(out)
+                out = f"{stem}-rank{self.rank:02d}{ext or '.json'}"
+            out = out or os.path.join(
                 self.tele_dir if self.tele_dir is not None else ".", "trace.json"
             )
-            print(f"Trace written to {_trace.tracer().export(out)}.")
+            self.log(f"Trace written to {_trace.tracer().export(out)}.")
             _trace.tracer().enabled = False
             _trace.tracer().reset()
         _flight.configure(None)

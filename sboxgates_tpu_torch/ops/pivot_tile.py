@@ -45,6 +45,11 @@ from ..telemetry import attribution as _tattr
 #: :func:`pivot_constraints` / :func:`pivot_constraints_pre`.
 launches = {"packed": 0, "pre": 0, "tile": 0, "pre_tile": 0, "lanes": 0}
 
+#: Window launches of :func:`pivot_window` and :func:`pivot_pre_window` by
+#: mesh shard (the ``shard`` the sharded pivot stream passes: its global
+#: shard index), counted with ``launches``.
+shard_launches: dict = {}
+
 #: Tiles swept by the window launches (a window of n tiles adds n to its
 #: backend's count; a lane-form launch adds the tiles its lanes sweep, not
 #: the inert slots of lanes cut at their t_end), and tiles of any that the
@@ -266,6 +271,11 @@ def _check_window(lowvalid, highvalid, descs, t0, t_end, dev):
         raise ValueError("the window's descriptors are out of range")
 
 
+def _count_shard(shard) -> None:
+    if shard is not None:
+        shard_launches[shard] = shard_launches.get(shard, 0) + 1
+
+
 def window_buffers(n, tl, th, device):
     """(req1, req0, feas) buffers for windows of up to ``n`` tiles."""
     req1 = torch.empty((n, tl, th), dtype=torch.int32, device=device)
@@ -274,7 +284,7 @@ def window_buffers(n, tl, th, device):
 
 
 def pivot_window(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n,
-                 t_end, tl, th, out=None):
+                 t_end, tl, th, out=None, shard=None):
     """K1 over a window of tiles ``[t0, t0 + n)`` of ``descs``, one launch:
     (req1, req0) int32[n, tl, th] (the raw words of
     :func:`pivot_constraints` for each tile), ``feas`` bool[n, tl, th] and
@@ -323,6 +333,7 @@ def pivot_window(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0, n,
         _kernels.check(fn(*args, *events), "pivot_window")
     launches["packed"] += 1
     tiles["packed"] += n
+    _count_shard(shard)
     return req1, req0, feas, counts
 
 
@@ -346,7 +357,7 @@ def pivot_pre_window_plain(tables, l1, l0, hc, lowvalid, highvalid, descs,
 
 
 def pivot_pre_window(tables, l1, l0, hc, lowvalid, highvalid, descs, t0, n,
-                     t_end, tl, th, out=None):
+                     t_end, tl, th, out=None, shard=None):
     """K2 over a window of tiles ``[t0, t0 + n)`` of ``descs``, one launch:
     :func:`pivot_window`'s contract and results, from the pair cells
     expanded to int8 0/1 lanes once per node: ``l1``/``l0``/``hc``
@@ -391,6 +402,7 @@ def pivot_pre_window(tables, l1, l0, hc, lowvalid, highvalid, descs, t0, n,
         _kernels.check(fn(*args, *events), "pivot_pre_window")
     launches["pre"] += 1
     tiles["pre"] += n
+    _count_shard(shard)
     return req1, req0, feas, counts
 
 

@@ -49,8 +49,9 @@ the same spec kills the same point every run.
 A site name may carry a qualifier, in the JAX package's grammar, and then
 fires only where it matches (with a hit counter of its own):
 
-- ``@rank:N``: the port runs one process, rank 0, so only ``@rank:0``
-  fires;
+- ``@rank:N``: on the process of rank N of the process group
+  (:func:`set_rank`, pinned by ``parallel.distributed.initialize``; rank 0
+  without a group);
 - ``@job:ID``: on a thread running serve job ``ID`` (:func:`set_job`, a
   per-thread pin the serve orchestrator sets around each job attempt and
   store consult; ``SBG_FAULT_JOB`` when the thread has none);
@@ -136,6 +137,16 @@ def _note_specs_changed() -> None:
     global _job_targeted, _tenant_targeted
     _job_targeted = any("@job:" in s for s in _specs)
     _tenant_targeted = any("@tenant:" in s for s in _specs)
+
+
+#: This process's rank in the process group (``@rank:N`` sites).
+_rank = 0
+
+
+def set_rank(rank: Optional[int]) -> None:
+    """Pins the rank that ``@rank:N`` sites match (``None``: 0)."""
+    global _rank
+    _rank = 0 if rank is None else int(rank)
 
 
 def set_job(job_id: Optional[str]) -> None:
@@ -251,10 +262,10 @@ def fault_point(site: str) -> None:
     if not _env_loaded and not _specs:
         with _lock:
             _load_env()
-    # This process is rank 0; the job and tenant names are this thread's
+    # This process's rank (set_rank); the job and tenant names are this thread's
     # pins (or the environment's), looked up only when some armed site
     # carries that kind of qualifier.
-    names = [site, f"{site}@rank:0"]
+    names = [site, f"{site}@rank:{_rank}"]
     if _job_targeted:
         job = current_job() or os.environ.get("SBG_FAULT_JOB")
         if job is not None:

@@ -21,8 +21,11 @@ final circuits are bit-identical to an uninterrupted run with the same seed:
 The files, their names and their bytes are the JAX package's
 (``sboxgates_tpu/resilience/journal.py``, version 2): records serialise
 with ``json.dumps(..., sort_keys=True)``, so a journal one package wrote
-is resumed by the other.  The per-job and per-shard layouts of that
-package's fleet and multi-host runs are not ported.
+is resumed by the other, the per-job journals of the several-box and
+fleet runs and the per-shard journals of a ``--shard-sweep`` run
+(:func:`shard_dir`) included.  One writer per journal: rank 0 for the run
+journal of several processes, whose other ranks restore from a
+``readonly`` handle; each rank for its own shard journal.
 """
 
 from __future__ import annotations
@@ -52,6 +55,12 @@ class JournalError(Exception):
     """The journal is missing, unreadable, or inconsistent."""
 
 
+def shard_dir(root: str, rank: int) -> str:
+    """The journal directory of rank ``rank``'s slice of a job-sharded
+    sweep: ``root/shard-NN/``."""
+    return os.path.join(root, f"shard-{rank:02d}")
+
+
 class SearchJournal:
     """Append-only run journal; see the module docstring.
 
@@ -62,10 +71,13 @@ class SearchJournal:
     """
 
     def __init__(self, directory: str, records: List[dict],
-                 readonly: bool = False):
+                 readonly: bool = False, ckpt_root: Optional[str] = None):
         self.directory = directory
         self.records = records
         self.readonly = readonly
+        # Where recorded checkpoint names resolve (default: the journal's
+        # own directory; a shard journal's are the run's --output-dir).
+        self.ckpt_root = ckpt_root
         # True when this handle continued an existing journal: per-job
         # journals take their fresh-or-resume choice from the run's.
         self.resumed = False
@@ -74,9 +86,10 @@ class SearchJournal:
     # -- construction ------------------------------------------------------
 
     @classmethod
-    def start(cls, directory: str, config: Dict[str, Any]) -> "SearchJournal":
+    def start(cls, directory: str, config: Dict[str, Any],
+              ckpt_root: Optional[str] = None) -> "SearchJournal":
         os.makedirs(directory, exist_ok=True)
-        j = cls(directory, [])
+        j = cls(directory, [], ckpt_root=ckpt_root)
         # Drop the previous run's snapshot first: a crash between the
         # truncate and the run_start append must not leave an empty JSONL
         # beside a stale snapshot that a later resume would resurrect.
@@ -89,14 +102,15 @@ class SearchJournal:
         return j
 
     @classmethod
-    def resume(cls, directory: str, readonly: bool = False) -> "SearchJournal":
+    def resume(cls, directory: str, readonly: bool = False,
+               ckpt_root: Optional[str] = None) -> "SearchJournal":
         records = cls.load_records(directory)
         if not records or records[0].get("type") != "run_start":
             raise JournalError(
                 f"no resumable journal in {directory!r} "
                 f"(missing run_start record)"
             )
-        j = cls(directory, records, readonly=readonly)
+        j = cls(directory, records, readonly=readonly, ckpt_root=ckpt_root)
         j.resumed = True
         if not readonly:
             # Rewrite the JSONL as exactly the parsed records: appending
@@ -240,7 +254,9 @@ class SearchJournal:
         return self.last("run_done") is not None
 
     def load_checkpoint(self, filename: str):
-        """Loads a checkpoint recorded by file name."""
+        """Loads a checkpoint recorded by file name (against ``ckpt_root``
+        when set)."""
         from ..graph.xmlio import load_state
 
-        return load_state(os.path.join(self.directory, filename))
+        return load_state(os.path.join(self.ckpt_root or self.directory,
+                                       filename))

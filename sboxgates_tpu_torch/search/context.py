@@ -254,14 +254,35 @@ def resolve_device(name: str) -> torch.device:
 
 
 class SearchContext:
-    """Derived state shared by every create_circuit call of one run."""
+    """Derived state shared by every create_circuit call of one run.
+
+    ``mesh_plan`` (a :class:`..parallel.MeshPlan`) runs the candidate
+    sweeps sharded over the mesh's shards (the context's device is then the
+    first local shard's); ``fleet_plan`` (a :class:`..parallel.FleetPlan`)
+    shapes a fleet's job buckets.  The two exclude each other, as in the
+    JAX package."""
 
     #: Entries kept in the device-table cache.
     TABLE_CACHE_SLOTS = 8
 
-    def __init__(self, opt: Options):
+    def __init__(self, opt: Options, mesh_plan=None, fleet_plan=None):
         self.opt = opt
+        if mesh_plan is not None and (fleet_plan is not None or opt.fleet):
+            raise ValueError(
+                "fleet execution and a candidate mesh are mutually "
+                "exclusive: the fleet shards the job axis over the mesh "
+                "itself (drop the MeshPlan, or Options.fleet)"
+            )
+        self.mesh_plan = mesh_plan
+        self.fleet_plan = fleet_plan
         self.device = resolve_device(opt.device)
+        if mesh_plan is not None:
+            if mesh_plan.device.type != self.device.type:
+                raise ValueError(
+                    f"the mesh's shards are {mesh_plan.device.type} devices, "
+                    f"the search runs on {self.device}"
+                )
+            self.device = mesh_plan.device
         if opt.pivot_backend not in sweeps.PIVOT_BACKENDS:
             raise ValueError(f"unknown pivot backend {opt.pivot_backend!r}")
         if opt.candidate_order not in CANDIDATE_ORDERS:
@@ -283,6 +304,7 @@ class SearchContext:
         self.triple_table_np, self.triple_entries = _build_triple_table(self.avail_3)
         self.triple_table = self._match_table(self.triple_table_np)
         self._native_probe = None
+        self._native_agree = None
         self._gate_step_caller = None
         self._gate_engine_caller = None
         self._lut_engine_caller = None
@@ -328,12 +350,14 @@ class SearchContext:
         # known-dead device for budget * (retries + 1) seconds each.
         self.device_degraded = False
         # Rendezvous of concurrent mux-branch / restart threads (None: plain
-        # dispatch): the JAX rule, on unless the device is the CPU.
+        # dispatch): the JAX rule, on unless the device is the CPU, and off
+        # under a mesh (its sharded drivers merge nothing; several
+        # processes need one collective order, which threads break).
         self.rdv = None
         want_mux = opt.parallel_mux
         if want_mux is None:
             want_mux = self.device.type != "cpu"
-        if want_mux:
+        if want_mux and mesh_plan is None:
             from .batched import Rendezvous  # deferred: import cycle
 
             self.rdv = Rendezvous(1, timer=self.launch_timer)
@@ -369,6 +393,9 @@ class SearchContext:
         self.rng.bit_generator.state = snap["bg"]
         self._seed_buf = (np.asarray(snap["seed_buf"], dtype=np.int64), 0)
 
+    def _spanning(self) -> bool:
+        return self.mesh_plan is not None and self.mesh_plan.spans_processes
+
     def guarded_dispatch(self, fn, label: str):
         """Runs one blocking device sweep under the hung-dispatch deadline
         (:func:`resilience.deadline.dispatch_with_retry`): breach, retry
@@ -376,9 +403,33 @@ class SearchContext:
         degrade on.  Also the ``dispatch.sweep`` fault site, one hit per
         call (and per retry).  ``fn`` issues and resolves the sweep, so a
         retry re-issues it with buffers of its own.  Inline when no budget
-        is set."""
+        is set.
+
+        On a process-spanning mesh the guard is the replicated protocol
+        (:func:`resilience.deadline.replicated_dispatch_with_retry`): one
+        verdict barrier per window, aborts and retries by agreement (each
+        abort renews the group's data plane), and the final
+        :class:`DispatchTimeout` on every rank in the same window.
+        ``SBG_DISPATCH_TIMEOUT_MULTIHOST=0`` drops the guard there."""
+        cfg = self.deadline_cfg
+        if cfg.enabled and self._spanning():
+            if not cfg.multihost:
+                return _deadline.dispatch_with_retry(fn, None,
+                                                     stats=self.stats,
+                                                     label=label)
+            from ..parallel import distributed as dist
+
+            budget = cfg.budget_s
+            return _deadline.replicated_dispatch_with_retry(
+                fn, cfg,
+                verdict=lambda breached: dist.breach_verdict(
+                    breached,
+                    timeout_s=_deadline.verdict_transport_timeout(budget),
+                ),
+                stats=self.stats, label=label, on_abort=dist.renew,
+            )
         return _deadline.dispatch_with_retry(
-            fn, self.deadline_cfg, stats=self.stats, label=label
+            fn, cfg, stats=self.stats, label=label
         )
 
     def host_sync_deadline(self, fn, label: str):
@@ -389,7 +440,7 @@ class SearchContext:
         retry schedule's budget; a breach raises :class:`DispatchTimeout`
         and the search fails loudly."""
         cfg = self.deadline_cfg
-        if not cfg.enabled:
+        if not cfg.enabled or (not cfg.multihost and self._spanning()):
             return fn()
         return _deadline.run_with_deadline(
             fn, cfg.budget_s * (cfg.retries + 1), label
@@ -397,15 +448,24 @@ class SearchContext:
 
     def trip_device_breaker(self) -> None:
         """Flips the device circuit breaker for the rest of the run: later
-        LUT sweeps go straight to the host chunk stream.  The trip is a
-        flight-recorder incident: the dump holds the recent dispatch and
-        deadline events and the counters."""
+        LUT sweeps go straight to the host chunk stream.  On a
+        process-spanning mesh the trip also demotes the context to this
+        process's device (the mesh plan dropped): the group's collectives
+        are what was written off, and every rank sweeping the space alone
+        gives the same results (the replicated protocol trips every rank
+        in the same window).  The trip is a flight-recorder incident: the
+        dump holds the recent dispatch and deadline events and the
+        counters."""
+        demoted = self._spanning()
         self.device_degraded = True
         self.stats.inc("circuit_breaker_trips")
-        _ttrace.instant("circuit_breaker.trip", "deadline", demoted_mesh=False)
+        _ttrace.instant("circuit_breaker.trip", "deadline",
+                        demoted_mesh=demoted)
+        if demoted:
+            self.mesh_plan = None
         path = _tflight.flight_dump(
             "circuit_breaker", registry=self.stats,
-            extra={"demoted_mesh": False},
+            extra={"demoted_mesh": demoted},
         )
         if path is not None:
             self.stats.inc("flight_dumps")
@@ -590,14 +650,14 @@ class SearchContext:
         tables as one int32 [lanes, bucket, 8] tensor (``lanes`` defaults to
         the fleet's jobs bucket); ``done`` jobs and pad lanes past the last
         job are zero rows."""
-        from .fleet import fleet_bucket
+        from .fleet import fleet_bucket, job_shards
 
         n = len(states)
         done = [False] * n if done is None else list(done)
         if bucket is None:
             bucket = max(bucket_size(st.num_gates) for st in states)
         if lanes is None:
-            lanes = fleet_bucket(n)
+            lanes = fleet_bucket(n, job_shards(self))
         stacked = np.zeros((lanes, bucket, 8), dtype=np.uint32)
         for i, (st, d) in enumerate(zip(states, done)):
             if not d:
@@ -689,6 +749,9 @@ class SearchContext:
         base_args, total, chunk = prebuilt
         if stop is not None:
             total = min(int(stop), total)
+        if self.mesh_plan is not None:
+            return self._sharded_stream(base_args, start, total, k, chunk,
+                                        st.num_gates)
         verdict, feas, r1, r0 = self.guarded_dispatch(
             lambda: self.stream_dispatch(
                 "feasible_stream", dict(k=k, chunk=chunk),
@@ -698,6 +761,51 @@ class SearchContext:
         )
         found, cstart, examined = (int(x) for x in verdict)
         return bool(found), cstart, feas, r1, r0, examined, chunk
+
+    def _sharded_stream(self, base_args, start, total, k, chunk, g):
+        """The mesh branch of :meth:`feasible_stream_driver`: the chunk
+        rounded up to a shard multiple (the stride the sharded stream
+        advances by, returned so callers resume at the next unswept rank).
+        On a process-spanning mesh the compact gather ships at most
+        ``SBG_GATHER_ROWS`` rows per shard; a chunk with more feasible rows
+        in some shard is fetched again in full (a second guarded window),
+        so no feasible row is ever dropped."""
+        from ..parallel import mesh as _mesh
+
+        plan = self.mesh_plan
+        n = plan.n_candidate_shards
+        chunk = -(-chunk // n) * n
+
+        def stream(s, compact):
+            return self.dispatch("feasible_stream", lambda: (
+                _mesh.sharded_feasible_stream(
+                    plan, *base_args, s, total, k=k, chunk=chunk,
+                    compact=compact)), g=g)
+
+        if not plan.spans_processes:
+            verdict, feas, r1, r0 = self.guarded_dispatch(
+                lambda: stream(start, False), f"feasible_stream k={k}")
+            found, cstart, examined = (int(x) for x in verdict)
+            return bool(found), cstart, feas, r1, r0, examined, chunk
+        vec, rows, feas_c, r1_c, r0_c = self.guarded_dispatch(
+            lambda: stream(start, True), f"feasible_stream.gather k={k}")
+        found, cstart, examined = (int(x) for x in vec[:3])
+        if not found:
+            return False, cstart, None, None, None, examined, chunk
+        if int(vec[3:].max()) > min(_mesh.gather_rows(), chunk // n):
+            _, feas, r1, r0 = self.guarded_dispatch(
+                lambda: stream(cstart, False),
+                f"feasible_stream.redrive k={k}")
+            return True, cstart, feas, r1, r0, examined, chunk
+        feas = np.zeros(chunk, dtype=bool)
+        r1 = np.zeros((chunk,) + r1_c.shape[1:], dtype=r1_c.dtype)
+        r0 = np.zeros_like(r1)
+        keep = rows[feas_c]
+        feas[keep] = True
+        r1[keep] = r1_c[feas_c]
+        r0[keep] = r0_c[feas_c]
+        put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        return True, cstart, put(feas), put(r1), put(r0), examined, chunk
 
     # -- placement --------------------------------------------------------
 
@@ -726,7 +834,30 @@ class SearchContext:
         sweeps, with no device work.  Every node does with
         ``Options.native``, as in the JAX package, whose size limit (512
         gates) lies above MAX_GATES."""
+        if self._spanning():
+            return self._native_all_procs()
         return self.opt.native and self._native_ok()
+
+    def _native_all_procs(self) -> bool:
+        """True when every rank of a process-spanning mesh routes its node
+        heads to the native runtime (one agreement at first use, cached):
+        a rank without it would otherwise enter sweeps its peers never
+        join.  Every rank calls it at the same point (the callers' guards
+        are the same on every rank)."""
+        if self._native_agree is None:
+            from ..parallel import distributed as dist
+
+            mine = self.opt.native and self._native_ok()
+            self._native_agree = dist.all_agree(mine)
+            if mine and not self._native_agree:
+                import warnings
+
+                warnings.warn(
+                    "native host runtime unavailable on some processes; "
+                    "routing every node head to the device sweeps so all "
+                    "processes stay in lockstep", RuntimeWarning,
+                )
+        return self._native_agree
 
     def node_host_only(self, st: State) -> bool:
         """True when a search node runs entirely on the host: gate mode,

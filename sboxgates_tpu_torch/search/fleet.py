@@ -24,8 +24,11 @@ package's do; done lanes and pad lanes carry zero tables and masks (nothing
 to sweep) and come back as zero rows.
 
 Unlike the JAX package, a merged rendezvous group runs exactly its own
-lanes (no duplicated pad lanes: nothing is compiled per shape here), and
-there is no job-axis mesh (``--fleet-candidates`` above 1 is ROADMAP A10's).
+lanes (no duplicated pad lanes: nothing is compiled per shape here).  A
+fleet plan (``--fleet-candidates``, or several local shards:
+:class:`..parallel.FleetPlan`) makes the jobs buckets multiples of its
+job shards, as the JAX package's job-axis mesh does; its stacked launches
+run on the first local shard's device.
 """
 
 from __future__ import annotations
@@ -71,6 +74,12 @@ def fleet_bucket(n: int, shards: int = 1) -> int:
         if b >= n and b >= shards and b % shards == 0:
             return b
     return -(-n // shards) * shards
+
+
+def job_shards(ctx) -> int:
+    """The job-axis shards of the context's fleet plan (1 without one)."""
+    plan = getattr(ctx, "fleet_plan", None)
+    return 1 if plan is None else plan.n_job_shards
 
 
 def prev_fleet_bucket(b: int) -> Optional[int]:
@@ -274,7 +283,7 @@ def _frame(ctx, jobs, done):
                          f"{FLEET_LADDER[-1]}; slice the fleet")
     done = [False] * n if done is None else list(done)
     b = max(bucket_size(st.num_gates) for st in sts)
-    return sts, n, done, b, fleet_bucket(n)
+    return sts, n, done, b, fleet_bucket(n, job_shards(ctx))
 
 
 def _lane_gs(sts, done, lanes):

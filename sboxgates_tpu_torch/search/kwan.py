@@ -37,7 +37,7 @@ from ..graph.state import (
 )
 from ..resilience.faults import fault_point
 from .context import SearchContext
-from .lut import lut_search_from_head
+from .lut import lut_search, lut_search_from_head
 
 
 def create_circuit(
@@ -72,9 +72,12 @@ def _create_circuit(
 
     # Steps 1-4 for one seed; budget gates are applied host-side in the
     # reference's order (sboxgates.c:301-435).  The LUT head also runs the
-    # whole 3-LUT and small-space 5-LUT sweeps.
+    # whole 3-LUT and small-space 5-LUT sweeps.  Under a mesh the fused
+    # head runs only where it routes to the native runtime; otherwise the
+    # gate head and the per-stage sharded streams run, as in the JAX
+    # package.
     head = None
-    if opt.lut_graph:
+    if opt.lut_graph and (ctx.mesh_plan is None or ctx.uses_native_step(st)):
         head = ctx.lut_step(st, target, mask, inbits)
         step, x0, x1 = int(head[0]), int(head[1]), int(head[2])
         if step >= 4:
@@ -103,7 +106,10 @@ def _create_circuit(
         return ret
 
     if opt.lut_graph:
-        ret = lut_search_from_head(ctx, st, target, mask, inbits, head)
+        if head is not None:
+            ret = lut_search_from_head(ctx, st, target, mask, inbits, head)
+        else:
+            ret = lut_search(ctx, st, target, mask, inbits)
         if ret != NO_GATE:
             st.verify_gate(ret, target, mask)
             return ret

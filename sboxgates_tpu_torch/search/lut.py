@@ -20,6 +20,15 @@ the retried call.  A sweep that exhausts its retries raises
 chunk stream (:func:`_host_feasible_chunks`: host-made chunks through the
 stage-A filter, K3 for 5-tuples), which finds the same first hit in rank
 order.  ``SBG_DEVICE_ENUM=0`` takes that stream from the start.
+
+Under a mesh (``ctx.mesh_plan``) the drivers take the JAX package's mesh
+branches: the 3-LUT and the small-space 5-LUT searches sweep the sharded
+feasibility stream (the chunk rounded up to a shard multiple) and solve on
+the host, the pivot sweep runs the sharded lockstep rounds of
+:func:`..parallel.mesh.sharded_pivot_stream` (one seed per sharded call,
+the hit rows resolved in tile order), candidate ordering stays
+lexicographic, and the spaces beyond int32 ranks take the host chunk
+stream.
 """
 
 from __future__ import annotations
@@ -69,6 +78,14 @@ def _unpack128(words: np.ndarray) -> np.ndarray:
     return out
 
 
+def _pick_row(ctx: SearchContext, rows: np.ndarray) -> int:
+    """Random choice among candidate rows (the reference shuffles its scan
+    order, sboxgates.c:285-299); the first row when not randomizing."""
+    if ctx.opt.randomize and len(rows) > 1:
+        return int(rows[int(ctx.rng.integers(0, len(rows)))])
+    return int(rows[0])
+
+
 # -------------------------------------------------------------------------
 # 3-LUT
 # -------------------------------------------------------------------------
@@ -97,6 +114,20 @@ def lut3_search(ctx: SearchContext, st: State, target, mask, inbits) -> int:
     if g < 3:
         return NO_GATE
     del inbits
+    if ctx.mesh_plan is not None:
+        found, cstart, feas, r1, r0, examined, _ = ctx.feasible_stream_driver(
+            st, target, mask, [], k=3
+        )
+        ctx.stats.inc("lut3_candidates", examined)
+        if not found:
+            return NO_GATE
+        rows = np.nonzero(feas.cpu().numpy())[0]
+        row = _pick_row(ctx, rows)
+        r1, r0 = sweeps.to_u32(r1), sweeps.to_u32(r0)
+        return _add_lut3_result(
+            ctx, st, cstart + row, int(r1[row]) & 0xFF, int(r0[row]) & 0xFF,
+            target, mask,
+        )
     args, total, chunk = ctx.stream_args(st, target, mask, [], 3)
     seed = ctx.next_seed()
     v = ctx.guarded_dispatch(
@@ -321,11 +352,52 @@ def _lut5_search_pivot(
             splits, w_tab, m_tab,
         )
 
+    def decode(v) -> dict:
+        """The hit of a verdict's (m, lo_abs, hi_abs, sigma, func_outer,
+        req1, req0)."""
+        return _decode_lut5(
+            ctx, combo_at(int(v[0]), int(v[1]), int(v[2])), int(v[3]),
+            int(v[4]), _unpack32(int(v[5]) & 0xFFFFFFFF),
+            _unpack32(int(v[6]) & 0xFFFFFFFF), splits, w_tab, m_tab,
+        )
+
+    if ctx.mesh_plan is not None:
+        from ..parallel.mesh import sharded_pivot_stream
+
+        # Lockstep rounds of one tile per shard; the shards' verdict rows
+        # resolved in tile order (a solver overflow re-driven in full).
+        start_t = 0
+        while start_t < t_real:
+            seed = ctx.next_seed()
+            verdicts = ctx.guarded_dispatch(
+                lambda s=start_t: ctx.dispatch(
+                    "lut5_pivot_stream", lambda: sharded_pivot_stream(
+                        ctx.mesh_plan, *args, s, t_real, jw, jm, seed,
+                        tl=tl, th=th, backend=backend,
+                    ), g=g),
+                "lut5.pivot.sharded",
+            )
+            next_t = int(verdicts[0, 9])
+            ctx.stats.inc(
+                "lut5_candidates",
+                int(size_cum[min(next_t, t_real)] - size_cum[start_t]),
+            )
+            hits = verdicts[verdicts[:, 0] != 0]
+            for hv in hits[np.argsort(hits[:, 1], kind="stable")]:
+                if int(hv[0]) == 1:
+                    return decode(hv[2:9])
+                res = redrive_tile(int(hv[1]))
+                if res is not None:
+                    return res
+            start_t = next_t
+        return None
+
     # Spectral best-first tile order: each tile keys on its pivot gate, so
     # one gate-score pass tiers all tiles (no rank arithmetic, no bound on
     # the space).  One stream (and one seed) per segment window.
     segments = None
-    if ctx.opt.candidate_order == "spectral" and t_real > 1:
+    if (ctx.opt.candidate_order == "spectral" and t_real > 1
+            and ctx.mesh_plan is None):
         segments = _order_tile_segments(
             ctx, args[0], target, mask, descs, t_real, "lut5.pivot", g
         )
@@ -358,11 +430,7 @@ def _lut5_search_pivot(
             if status == 1:
                 if ordered:
                     ctx.stats.inc("order_first_hit_tier", tier)
-                return _decode_lut5(
-                    ctx, combo_at(int(v[1]), int(v[2]), int(v[3])), int(v[4]),
-                    int(v[5]), _unpack32(int(v[6]) & 0xFFFFFFFF),
-                    _unpack32(int(v[7]) & 0xFFFFFFFF), splits, w_tab, m_tab,
-                )
+                return decode(v[1:8])
             # status 2: more feasible tuples in tile next_t - 1 than the
             # in-stream solver rows — solve that tile's tuples in full.
             res = redrive_tile(next_t - 1)
@@ -395,6 +463,8 @@ def lut5_search(ctx: SearchContext, st: State, target, mask, inbits) -> Optional
     try:
         if comb.n_choose_k(g, 5) >= PIVOT_MIN_TOTAL:
             return _lut5_search_pivot(ctx, st, target, mask, inbits)
+        if ctx.mesh_plan is not None:
+            return _lut5_mesh_stream(ctx, st, target, mask, inbits)
         return _lut5_stream_loop(ctx, st, target, mask, inbits, 0)
     except DispatchTimeout as e:
         logger.warning(
@@ -459,6 +529,27 @@ def _lut5_stream_loop(ctx, st, target, mask, inbits, start) -> Optional[dict]:
                     ctx.stats.inc("order_first_hit_tier", tier)
                 return res
             start = cstart + chunk
+    return None
+
+
+def _lut5_mesh_stream(ctx, st, target, mask, inbits) -> Optional[dict]:
+    """The mesh's small-space 5-LUT search: the sharded feasibility stream
+    to each chunk holding feasible tuples, solved on the host, resumed
+    after a chunk that does not solve."""
+    total = comb.n_choose_k(st.num_gates, 5)
+    prebuilt = ctx.stream_args(st, target, mask, inbits, 5)
+    start = 0
+    while start < total:
+        found, cstart, feas, r1, r0, examined, chunk = ctx.feasible_stream_driver(
+            st, target, mask, inbits, k=5, start=start, prebuilt=prebuilt
+        )
+        ctx.stats.inc("lut5_candidates", examined)
+        if not found:
+            return None
+        res = _lut5_solve_feasible_chunk(ctx, st, cstart, feas, r1, r0)
+        if res is not None:
+            return res
+        start = cstart + chunk
     return None
 
 
@@ -533,8 +624,11 @@ def _feasible_chunks(ctx: SearchContext, st: State, target, mask, inbits, k: int
     (:func:`_host_feasible_chunks`) with the breaker tripped or
     ``SBG_DEVICE_ENUM=0``.  Both yield ``(combos_fn, feasible, req1, req0)``
     per feasible chunk in rank order.  The device stream charges ranks
-    examined, the host stream the rows left after the exclusions."""
-    if not ctx.device_degraded and _device_enum_enabled():
+    examined, the host stream the rows left after the exclusions.  A mesh
+    takes the host stream too (its sharded streams own the chunk
+    placement), as in the JAX package."""
+    if (ctx.mesh_plan is None and not ctx.device_degraded
+            and _device_enum_enabled()):
         return _wide_feasible_chunks(
             ctx, st, target, mask, inbits, k, chunk_cap, stat_key, phase
         )
@@ -695,9 +789,11 @@ ORDER_TIERS = 4
 
 def _use_spectral(ctx: SearchContext, total: int, chunk: int) -> bool:
     """Route guard for the ordered rank streams: opted in, more than one
-    chunk to order, and within the scoring budget."""
+    chunk to order, within the scoring budget, and off a mesh (its
+    sharded streams keep lexicographic order)."""
     return (
         ctx.opt.candidate_order == "spectral"
+        and ctx.mesh_plan is None
         and chunk < total <= spectral.SPECTRAL_SCORE_MAX
     )
 

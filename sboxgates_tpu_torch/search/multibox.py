@@ -13,6 +13,11 @@ ratchet across a box's attempts).
 
 States land in a subdirectory per box (``<output-dir>/<box>/``, ``pXX/``
 for a permutation), as the JAX CLI writes them.
+
+Under a mesh the jobs run serially (the mesh's sharded sweeps own the
+devices), as in the JAX package.  A job-sharded sweep (``--shard-sweep``)
+gives each process of a group its round-robin slice of the jobs
+(:func:`process_slice`), searched on its local shards.
 """
 
 from __future__ import annotations
@@ -86,14 +91,45 @@ def _run_jobs(
     return out
 
 
+def process_slice(boxes: Sequence[BoxJob]) -> List[BoxJob]:
+    """This process's slice of a job-sharded sweep: round robin by rank
+    (slices within one job of each other).  Needs at least one job per
+    process."""
+    from ..parallel import distributed as dist
+
+    n = dist.world_size()
+    if n <= 1:
+        return list(boxes)
+    if len(boxes) < n:
+        raise ValueError(
+            f"job sharding needs >= {n} jobs for {n} processes; "
+            f"got {len(boxes)}"
+        )
+    return list(boxes)[dist.rank()::n]
+
+
 def _auto_batched(ctx: SearchContext, batched, boxes: Sequence[BoxJob] = ()):
     """The execution mode: ``"fleet"`` for a fleet context or when asked;
-    otherwise ``batched=None`` is serial when a job family prefers it
-    (:attr:`BoxJob.prefer_serial`) and batched elsewhere."""
-    if batched == "fleet" or (batched is None and ctx.opt.fleet):
+    otherwise ``batched=None`` is serial under a mesh or when a job family
+    prefers it (:attr:`BoxJob.prefer_serial`), batched elsewhere.  A fleet
+    or a batch under a mesh is refused, as in the JAX package."""
+    fleet_ctx = ctx.opt.fleet or ctx.fleet_plan is not None
+    if batched == "fleet" or (batched is None and fleet_ctx):
+        if ctx.mesh_plan is not None:
+            raise ValueError(
+                "fleet execution shards the job axis over its own mesh "
+                "and cannot run under a candidate mesh; drop --mesh"
+            )
         return "fleet"
     if batched is None:
+        if ctx.mesh_plan is not None:
+            return False
         return not any(b.prefer_serial for b in boxes)
+    if batched and ctx.mesh_plan is not None:
+        raise ValueError(
+            "batched multi-box execution is host-threaded and cannot run "
+            "under a mesh (GSPMD owns the devices); pass batched=False"
+        )
     return batched
 
 
@@ -120,7 +156,8 @@ def _job_journals(ctx, boxes, output, save_dir, journal) -> Optional[dict]:
         return None
     from ..resilience.journal import SearchJournal
 
-    root = save_dir if save_dir is not None else journal.directory
+    root = (save_dir if save_dir is not None
+            else (journal.ckpt_root or journal.directory))
     return {
         box.name: SearchJournal.for_job(
             root, box.name,
@@ -352,6 +389,14 @@ def search_boxes_all_outputs(
             journal.append("mb_round_done", round=rnd, boxes=boxes_state,
                            rng=ctx.rng_snapshot())
             fault_point("search.round")
+        # Every rank of a pod-wide run checks the round against the
+        # primary's (journal or not); a job-sharded sweep's local mesh
+        # skips it (its slices run different round counts by design).
+        if ctx.mesh_plan is None or ctx.mesh_plan.spans_processes:
+            from ..parallel import distributed as dist
+
+            dist.journal_seq_check(
+                rnd, journal.seq if journal is not None else None)
     if journal is not None:
         journal.append(
             "run_done",

@@ -125,7 +125,10 @@ def generate_graph_one_output(
     opt = ctx.opt
     log(f"Generating graphs for output {output}...")
     mask = tt.mask_table(st.num_inputs)
-    if (opt.batch_restarts or opt.fleet) and opt.iterations > 1:
+    # Batched restarts are host threads over merged sweeps: under a mesh
+    # (one collective order across processes) they run the serial loop.
+    if ((opt.batch_restarts or opt.fleet or ctx.fleet_plan is not None)
+            and opt.iterations > 1 and ctx.mesh_plan is None):
         from .batched import generate_graph_one_output_batched
 
         results = generate_graph_one_output_batched(
@@ -230,7 +233,8 @@ def generate_graph(
             if beam.consider(nst, output) and save_dir is not None:
                 save_state(nst, save_dir)
 
-        if opt.batch_restarts or opt.fleet:
+        if (opt.batch_restarts or opt.fleet
+                or ctx.fleet_plan is not None) and ctx.mesh_plan is None:
             from .batched import run_batched_circuits
 
             jobs, meta = [], []
@@ -348,3 +352,11 @@ def _round_checkpoint(ctx, journal, rnd: int, beam_states, save_dir) -> None:
             rng=ctx.rng_snapshot(),
         )
         fault_point("search.round")
+    # Every rank of a pod-wide run (journal or not) checks the round
+    # against the primary's, so a desynced resume fails here, not in the
+    # next collective; a process-local mesh's rounds are no lockstep units.
+    if ctx.mesh_plan is not None and not ctx.mesh_plan.spans_processes:
+        return
+    from ..parallel import distributed as dist
+
+    dist.journal_seq_check(rnd, journal.seq if journal is not None else None)

@@ -2,7 +2,7 @@
 over one shared context.
 
 PyTorch counterpart of the JAX package's ``search/serve.py`` (its HTTP
-front door, ``serve_net/``, is not ported).  A :class:`ServeOrchestrator`
+front door is :mod:`sboxgates_tpu_torch.serve_net`).  A :class:`ServeOrchestrator`
 admits many searches, one :class:`ServeJob` per query, over ONE shared
 :class:`SearchContext`: every job runs on a :class:`JobView` that shares
 the base context's derived tables, device-table caches and built kernels,

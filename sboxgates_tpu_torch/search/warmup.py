@@ -9,7 +9,10 @@ compile step to warm (the CUDA kernels are built once by
 :mod:`sboxgates_tpu_torch._kernels`, and PyTorch runs eagerly), so only the
 registry half is ported: ``KERNELS``, :func:`kernel` and :func:`warm_key`.
 ``--no-warmup`` and ``--compile-cache`` are accepted by the CLI and change
-nothing.
+nothing.  The JAX package's ``mesh_warm_specs`` (the sharded streams'
+executables, compiled ahead for a pinned mesh) has no counterpart either:
+a mesh warms nothing here, its sharded streams (``parallel/mesh.py``)
+launch the same built kernels on every shard.
 
 Each entry names a sweep of :mod:`sboxgates_tpu_torch.ops.sweeps` that the
 search layer dispatches through the registry, and its lane form there

@@ -55,8 +55,9 @@ class FlightRecorder:
             self._dir = directory
 
     def set_rank(self, rank: Optional[int]) -> None:
-        """Pins the rank tag of dumps and trace pids (``None``: 0).  The
-        port runs one process, which is rank 0."""
+        """Pins the rank tag of dumps and trace pids (``None``: 0): the
+        process group's rank (``parallel.distributed.initialize``), 0 for
+        a process without a group."""
         with self._lock:
             self._rank = 0 if rank is None else int(rank)
 
@@ -207,8 +208,11 @@ def set_rank(rank: Optional[int]) -> None:
     _RECORDER.set_rank(rank)
 
 
-def configure(directory: Optional[str]) -> None:
+def configure(directory: Optional[str], rank: Optional[int] = None) -> None:
+    """Sets the dump directory, and the rank tag when ``rank`` is given."""
     _RECORDER.configure(directory)
+    if rank is not None:
+        _RECORDER.set_rank(rank)
 
 
 def flight_dump(

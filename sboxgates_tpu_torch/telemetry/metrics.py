@@ -63,6 +63,9 @@ METRICS: Dict[str, MetricDef] = {
     # resilience
     "dispatch_retries": MetricDef(COUNTER, "retries", "deadline-guard re-issues"),
     "deadline_breaches": MetricDef(COUNTER, "breaches", "local deadline breaches"),
+    "breach_barriers": MetricDef(COUNTER, "rounds", "replicated verdict-barrier rounds joined"),
+    "replicated_aborts": MetricDef(COUNTER, "windows", "windows abandoned on an agreed breach"),
+    "degraded_ranks": MetricDef(COUNTER, "events", "retry schedules exhausted on this rank"),
     "circuit_breaker_trips": MetricDef(COUNTER, "events", "device circuit-breaker flips"),
     "flight_dumps": MetricDef(COUNTER, "dumps", "flight-recorder dumps written"),
     "journal_appends": MetricDef(COUNTER, "records", "fsync'd journal records appended"),

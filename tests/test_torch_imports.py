@@ -58,6 +58,9 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.telemetry.attribution",
         "sboxgates_tpu_torch.telemetry.status",
         "sboxgates_tpu_torch.telemetry.watch",
+        "sboxgates_tpu_torch.parallel",
+        "sboxgates_tpu_torch.parallel.mesh",
+        "sboxgates_tpu_torch.parallel.distributed",
         "sboxgates_tpu_torch.utils.profile",
         "sboxgates_tpu_torch.utils.guards",
         "sboxgates_tpu_torch.search.batched",

@@ -190,10 +190,12 @@ def _journal_with(tmp_path, name, **config):
 REFUSALS = {
     "version": dict(version=3),
     "missing_key": dict(pipeline_depth=...),
+    # A mesh, a fleet split over 4 x 2 shards and batched restarts on a
+    # mesh resume in the port, to the JAX CLI's files (8 shards, its 8
+    # devices); a sweep sharded over processes with one input, and a
+    # several-input one that records no process count, are refused by both
+    # CLIs with the JAX CLI's line.
     "mesh": dict(mesh=True),
-    # A fleet, batched restarts and several inputs resume in the port now;
-    # what it still refuses of each: a fleet sharded over several cards, a
-    # batch on a mesh, a sweep sharded over processes.
     "fleet": dict(fleet=True, fleet_candidates=2),
     "serve": dict(serve=True),
     # A serve run with the HTTP front door resumes by serving again too.
@@ -203,34 +205,69 @@ REFUSALS = {
     "shard_sweep": dict(shard_sweep=True),
     "several_inputs": dict(input=[FA, FA], shard_sweep=True),
 }
-# The setting each refusal names, where it is not the case's own.
-REFUSED_KEY = {"fleet": "fleet_candidates", "batch_iterations": "mesh",
-               "several_inputs": "shard_sweep"}
-# The refusals the JAX CLI makes too, with its message (a serve run
-# resumes by serving again, in both packages).
-SHARED = ("version", "missing_key", "no_journal", "serve", "serve_port")
+# The journals both CLIs resume (the rest both refuse, in one line).
+RESUMED = ("mesh", "fleet", "batch_iterations")
+
+# The JAX CLI resuming each directory of argv[1:] on 8 virtual devices, in
+# a fresh process on its native route.
+_JAX_RESUME = r"""
+import sys
+from sboxgates_tpu import native
+from sboxgates_tpu.cli import main
+if not native.available():
+    sys.exit(f"native runtime unavailable: {native.build_error()}")
+for d in sys.argv[1:]:
+    assert main(["--resume-run", d]) == 0, d
+"""
+
+
+def _jax_resume(dirs):
+    env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu",
+               SBG_WARMUP="0",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    for k in ("SBG_DISABLE_NATIVE", "SBG_FAULTS", "SBG_LOCAL_SHARDS"):
+        env.pop(k, None)
+    subprocess.run([sys.executable, "-c", _JAX_RESUME, *dirs], env=env,
+                   check=True, timeout=600, stdout=subprocess.DEVNULL)
+
+
+def _files(d):
+    out = {}
+    for f in sorted(os.listdir(d)):
+        if f.endswith(".xml") or "journal" in f:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[f] = fh.read()
+    return out
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS) + ["no_journal"])
 def test_a_journal_the_port_cannot_resume_is_refused_in_one_line(
-        case, tmp_path, capsys):
+        case, tmp_path, capsys, monkeypatch):
+    """Each journal is refused by the port with the JAX CLI's line, or,
+    for the modes the port runs (RESUMED), resumed by both CLIs to the
+    same files."""
     if case == "no_journal":
         d = str(tmp_path / "empty")
         os.makedirs(d)
     else:
         d = _journal_with(tmp_path, case, **REFUSALS[case])
+    if case in RESUMED:
+        jd = _copy_run(d, str(tmp_path / "jax"))
+        monkeypatch.setenv("SBG_LOCAL_SHARDS", "8")
+        assert _main(["--resume-run", d]) == 0
+        _jax_resume([jd])
+        assert _files(d) == _files(jd)
+        assert any(f.endswith(".xml") for f in _files(d))
+        return
     before = sorted(os.listdir(d))
     assert _main(["--resume-run", d]) == 1
     err = capsys.readouterr().err.strip()
-    assert err.count("\n") == 0 and err.startswith("Error: ")
+    assert err.count("\n") == 0 and err
     assert sorted(os.listdir(d)) == before
-    if case in SHARED:
-        from sboxgates_tpu import cli as jcli
+    from sboxgates_tpu import cli as jcli
 
-        assert jcli.main(["--resume-run", d]) == 1
-        assert capsys.readouterr().err.strip().splitlines()[-1] == err
-    else:
-        assert f"records {REFUSED_KEY.get(case, case)}=" in err
+    assert jcli.main(["--resume-run", d]) == 1
+    assert capsys.readouterr().err.strip().splitlines()[-1] == err
 
 
 def _copy_run(src, dst):

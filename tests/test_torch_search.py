@@ -360,15 +360,43 @@ def test_bad_flags_fail_with_the_jax_message(argv, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    # Several S-box files run since the job axis was ported; a fleet whose
-    # lanes shard over several cards is still not ported.
-    ["-o", "0", "--fleet-candidates", "2", DES, FA],
-    ["-l", "--fleet", "--fleet-candidates", "4", DES, FA],
+    # --fleet-candidates without --fleet: the sweep runs as it would
+    # without it; with it, the fleet's 8 shards split 2 x 4 (and 8 do not
+    # split into 3, which both CLIs refuse in one line).
+    ["-o", "0", "--seed", "1", "--fleet-candidates", "2", FA, FB],
+    ["-o", "0", "--seed", "1", "--fleet", "--fleet-candidates", "4", FA, FB],
 ])
-def test_unported_modes_fail_with_one_line(argv, capsys):
-    assert cli.main(argv + ["--device", "cpu"]) == 1
-    err = capsys.readouterr().err.strip()
-    assert "not ported" in err and err.count("\n") == 0
+def test_unported_modes_fail_with_one_line(argv, capsys, tmp_path,
+                                           monkeypatch):
+    """The fleet-candidate modes run in the port on 8 shards and write the
+    JAX CLI's files of its 8 devices (both in this process, on the native
+    route)."""
+    from sboxgates_tpu import native as jax_native
+    from sboxgates_tpu.cli import main as jax_main
+
+    monkeypatch.setenv("SBG_LOCAL_SHARDS", "8")
+    monkeypatch.delenv("SBG_DISABLE_NATIVE", raising=False)
+    if not jax_native.available():
+        # This process's JAX package runs the device route: so does the
+        # port.
+        monkeypatch.setenv("SBG_DISABLE_NATIVE", "1")
+    td, jd = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert cli.main(argv + ["--device", "cpu", "--output-dir", td]) == 0
+    assert jax_main(argv + ["--output-dir", jd]) == 0
+    want = {os.path.relpath(os.path.join(b, f), jd)
+            for b, _, fs in os.walk(jd) for f in fs if f.endswith(".xml")}
+    got = {os.path.relpath(os.path.join(b, f), td)
+           for b, _, fs in os.walk(td) for f in fs if f.endswith(".xml")}
+    assert got == want and got
+    if "--fleet" in argv:
+        bad = [a if a != "4" else "3" for a in argv]  # 8 shards by 3
+        capsys.readouterr()
+        assert cli.main(bad + ["--device", "cpu", "--output-dir",
+                               str(tmp_path / "b")]) == 1
+        err = capsys.readouterr().err.strip()
+        assert err.count("\n") == 0 and "split" in err
+        assert jax_main(bad + ["--output-dir", str(tmp_path / "jb")]) == 1
+        assert capsys.readouterr().err.strip().splitlines()[-1] == err
 
 
 def test_missing_card_is_an_error_not_a_cpu_run(capsys, tmp_path):

@@ -632,15 +632,22 @@ def test_serve_rejects_incoherent_flags_in_one_line(tmp_path, monkeypatch,
 @pytest.mark.parametrize("flags", [
     ["--mesh"],
     ["--shard-sweep"], ["--coordinator", "localhost:1"],
-    ["--num-processes", "2"], ["--process-id", "0"],
-    ["--fleet-candidates", "2"],
+    ["--num-processes", "2"], ["--process-id", "0", "--num-processes", "2"],
+    ["--fleet-candidates", "2", "--fleet"],
 ])
 def test_unported_flags_fail_in_one_line(flags, tmp_path, monkeypatch, capsys):
+    """The mesh, process and fleet flags run in the port; with ``--serve``
+    both CLIs refuse them, in one line, the JAX CLI's (a serve run is one
+    process over its local devices), before any group is joined or file
+    written."""
+    from sboxgates_tpu import cli as jcli
     from sboxgates_tpu_torch import cli
 
     monkeypatch.chdir(tmp_path)
-    assert cli.main([*flags, "-l", DES, "--device", "cpu"]) == 1
+    argv = [*flags, "--serve", "--output-dir", str(tmp_path), "-l", DES]
+    assert cli.main([*argv, "--device", "cpu"]) == 1
     err = capsys.readouterr().err.strip()
-    assert err.count("\n") == 0 and err.startswith("Error: ")
-    assert "not ported yet" in err and "python -m sboxgates_tpu" in err
+    assert err.count("\n") == 0 and err
+    assert jcli.main(argv) == 1
+    assert capsys.readouterr().err.strip().splitlines()[-1] == err
     assert not os.listdir(tmp_path)
