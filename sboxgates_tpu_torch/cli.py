@@ -814,15 +814,21 @@ def _search(args, native: bool, multiprocess: bool, log, tele_root) -> int:
             if args.available_gates is not None
             else bf.DEFAULT_AVAILABLE
         ),
+        # torchlint: ignore[R7] progress display only; never shapes the draw stream
         verbosity=args.verbose,
         seed=args.seed,
+        # torchlint: ignore[R7] the device picks where the sweeps run; like the JAX CLI's platform it is not journaled (the journal stays byte-identical to the JAX CLI's), so --resume-run takes --device again
         device=args.device,
+        # torchlint: ignore[R7] K1 (packed) and K2 (pre) return the same verdict on every tile, so the backend never shapes the draw stream; not journaled, like --device
         pivot_backend=args.pivot_backend,
         candidate_order=args.candidate_order,
         native=native,
         pipeline_depth=args.pipeline_depth,
+        # torchlint: ignore[R7] deadline/degradation timing; results bit-identical with or without
         dispatch_timeout_s=args.dispatch_timeout,
+        # torchlint: ignore[R7] telemetry is observation-only (zero-sync counter-asserted)
         trace=args.trace is not None,
+        # torchlint: ignore[R7] live-introspection endpoint; observation-only, never shapes the draw stream
         status_port=args.status_port,
         batch_restarts=args.batch_iterations,
         parallel_mux=False if args.serial_mux else None,

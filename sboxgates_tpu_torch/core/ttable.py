@@ -34,6 +34,7 @@ def ones() -> np.ndarray:
 
 def from_bits(bits) -> np.ndarray:
     """Packs a boolean array (last axis = 256) into uint32 words (last axis = 8)."""
+    # torchlint: ignore[R2x] host-side helper by contract (numpy only): callers pass host bit arrays; a device value crossing here is the documented boundary
     bits = np.asarray(bits, dtype=bool)
     assert bits.shape[-1] == TABLE_BITS
     b = bits.reshape(bits.shape[:-1] + (N_WORDS, WORD_BITS)).astype(np.uint32)

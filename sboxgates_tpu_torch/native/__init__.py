@@ -180,6 +180,7 @@ def make_eng_devcb(service):
                 resp[0] = 1
                 resp[1 : 1 + len(out)] = np.asarray(out, dtype=np.int64)
             return 0
+        # torchlint: ignore[R5] not swallowed: the exception is handed to the engine's caller (pending['service_exc']), which re-raises it once the native engine has unwound; a C callback cannot raise
         except Exception as e:  # the engine bails; its caller reports it
             pending["service_exc"] = e
             _logger.debug(

@@ -163,6 +163,7 @@ class CombinationStream:
         self.pos += len(rows)
         if not rows:
             return None
+        # torchlint: ignore[R2x] host-built list of combination tuples from the pure-Python iterator; no device value can flow here
         return np.asarray(rows, dtype=np.int32)
 
 

@@ -229,6 +229,7 @@ def _window_plain(tile_words, lowvalid, highvalid, descs, t0, n, t_end, tl,
     rows_l = torch.arange(tl, device=dev)
     rows_h = torch.arange(th, device=dev)
     if isinstance(descs, torch.Tensor):
+        # torchlint: ignore[R2x] plain version: it runs on CPU tensors only (the wrapper launches K1 for a CUDA tensor), so this copy waits for no device
         descs = descs[t0 : max(t0, min(t0 + n, t_end))].tolist()
         t_end, t0 = t_end - t0, 0
     for z in range(n):
@@ -430,6 +431,7 @@ def pivot_window_lanes_plain(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
     if out is None:
         out = window_lanes_buffers(lanes, n, tl, th, dev)
     req1, req0, feas = _lane_views(out, lanes, n)
+    # torchlint: ignore[R2x] plain version: it runs on CPU tensors only (the wrapper launches K1's lane form for a CUDA tensor), so this copy waits for no device
     rows = descs.tolist()
     counts = []
     for i in range(lanes):

@@ -80,12 +80,14 @@ _I64 = torch.int64
 
 def as_words(a, device) -> torch.Tensor:
     """numpy uint32 words -> int32 bit-pattern tensor on ``device``."""
+    # torchlint: ignore[R2x] host word arrays normalized for the upload; the copy is the upload, not a device pull
     arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
     return torch.from_numpy(arr.copy()).to(device)
 
 
 def to_u32(t: torch.Tensor) -> np.ndarray:
     """int32 bit-pattern tensor -> numpy uint32 array."""
+    # torchlint: ignore[R2x] deliberate sync by contract: callers convert a resolved chunk's words only after its verdict said hit (one pull per feasible chunk)
     return t.detach().cpu().numpy().astype(np.int32).view(np.uint32)
 
 
@@ -627,6 +629,7 @@ def _feasible_lanes(ln: _Lanes, starts, totals, k, chunk):
         feas, r1, r0, _, _ = ln.chunk(live, [nxt[j] for j in live],
                                       [totals[j] for j in live], [0] * len(live),
                                       k, chunk)
+        # torchlint: ignore[R2] deliberate sync: one any-feasible flag per live lane per chunk, the lane stream's only sync point
         anyf = feas.any(dim=1).tolist()
         nxt_live = []
         for i, j in enumerate(live):
@@ -714,6 +717,7 @@ def _lut3_lanes(ln: _Lanes, idx, starts, totals, seeds, chunk):
         )
         prio = torch.where(feasible, _priority_lanes(chunk, cseeds, device=ln.dev), 0)
         best = torch.argmax(prio, dim=1)
+        # torchlint: ignore[R2] deliberate sync: one compact verdict row per live lane per chunk, the lane stream's only sync point
         rows = torch.stack([
             feasible.any(dim=1).long(), _take(ranks, best),
             _take(r1, best).long(), _take(r0, best).long(),
@@ -771,6 +775,7 @@ def _lut5_lanes(ln: _Lanes, idx, starts, totals, w_tab, m_tab, seeds, chunk,
         sr0 = torch.where(fsel, torch.gather(r0, 1, topi), -1)
         found, best_t, sel = _lut5_solve_lanes(sr1, sr0, w_tab, m_tab,
                                                [x ^ 0x9E37 for x in cseeds])
+        # torchlint: ignore[R2] deliberate sync: one compact verdict row per live lane per chunk, the lane stream's only sync point
         rows = torch.stack([
             feasible.any(dim=1).long(), found.long(), feasible.sum(dim=1),
             _take(ranks, _take(topi, best_t)), sel,
@@ -841,6 +846,7 @@ def _match_lanes(ln: _Lanes, idx, starts, totals, seeds, match_table, k, chunk,
         ok = feasible & (slots >= 0)
         prio = torch.where(ok, _priority_lanes(chunk, cseeds, device=ln.dev), 0)
         best = torch.argmax(prio, dim=1)
+        # torchlint: ignore[R2] deliberate sync: one compact verdict row per live lane per chunk, the lane stream's only sync point
         rows = torch.stack(
             [ok.any(dim=1).long(), best, _take(slots, best)], dim=1
         ).tolist()
@@ -1107,6 +1113,7 @@ def _pivot_solve_lanes(feas, req1, req0, seeds_t, w_tab, m_tab, solve_rows):
     fr0 = torch.where(fsel, torch.gather(req0, 1, topi), -1)
     found, best_t, sel = _lut5_solve_lanes(fr1, fr0, w_tab, m_tab,
                                            [x ^ 0x9E37 for x in s])
+    # torchlint: ignore[R2x] deliberate compact-verdict sync: the solved tiles' rows reach the host in one pull per solve, to decide stop, overflow and re-drive
     return torch.stack([
         found.long(), nfeas, _take(topi, best_t), sel,
         _take(fr1, best_t).long(), _take(fr0, best_t).long(),
@@ -1542,6 +1549,7 @@ def lut5_split_tables() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
             )
         )
     return (
+        # torchlint: ignore[R2x] host-built python list of split positions; nothing device-resident flows in
         np.asarray(splits, dtype=np.int32),
         np.stack(w_rows).astype(np.uint32),
         np.stack(m_rows).astype(np.uint32),
@@ -1578,6 +1586,7 @@ def lut7_split_tables() -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
             wm_rows.append(pack128((g[:, None] >> idx_m[None, :]) & u(1)))
             g_rows.append(pack128((x[free] & 1)[None, :])[0])
     return (
+        # torchlint: ignore[R2x] host-built python list of decode orders; nothing device-resident flows in
         np.asarray(orders, dtype=np.int32),
         np.stack(wo_rows),
         np.stack(wm_rows),
@@ -1744,6 +1753,7 @@ def round_driver_lanes(rows, *, chunk3, chunk5, has5, max_rounds,
         eq = eq_mask(tl, tgt[:, None], msk[:, None]) & valid
         neq = eq_mask(~tl, tgt[:, None], msk[:, None]) & valid
         sprio = _priority_lanes(bsz, sd, det_newest=True, device=dev)
+        # torchlint: ignore[R2] deliberate sync: one compact head row per live lane per round, the round driver's only sync point
         head = torch.stack([
             eq.any(dim=1).long(), neq.any(dim=1).long(),
             torch.argmax(torch.where(eq, sprio, 0), dim=1),

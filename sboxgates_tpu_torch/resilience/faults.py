@@ -95,6 +95,7 @@ KNOWN_SITES = (
     "net.auth",
     "net.body",
     "net.admit_journal",
+    "dist.verdict",
 )
 
 

@@ -231,7 +231,9 @@ class _ChainLane:
         targets = np.zeros((rb, 8), np.uint32)
         masks = np.zeros((rb, 8), np.uint32)
         for i in range(n):
+            # torchlint: ignore[R2x] the chain's round targets are host word arrays; asarray normalizes them before the upload
             targets[i] = np.asarray(self.rounds[self.r + i][0], np.uint32)
+            # torchlint: ignore[R2x] the chain's round masks are host word arrays; asarray normalizes them before the upload
             masks[i] = np.asarray(self.rounds[self.r + i][1], np.uint32)
         seeds = np.zeros(rb, np.int32)
         dcs = np.zeros(rb, np.int32)

@@ -164,6 +164,7 @@ class AdmissionJournal:
                 permute=int(rec.get("permute", 0)),
             )
             try:
+                # torchlint: ignore[R14] boot replay re-serves jobs that passed auth+quota at their original accept; the admission checks do not re-run on recovery by design
                 orch.submit(job)
             except ServeClosed:
                 log(

@@ -154,7 +154,9 @@ class FlightRecorder:
             "reason": reason,
             "rank": self.rank(),
             "pid": os.getpid(),
+            # torchlint: ignore[R11] incident wall-clock stamp is advisory forensics metadata, never replayed or keyed on
             "time_unix": time.time(),
+            # torchlint: ignore[R11] perf epoch for correlating dump with heartbeat lines; forensics only
             "time_perf": time.perf_counter(),
             "extra": {k: _trunc(v) for k, v in (extra or {}).items()},
             "events": events,

@@ -120,7 +120,9 @@ class Heartbeat:
             "seq": self._seq,
             "rank": self.rank,
             "pid": os.getpid(),
+            # torchlint: ignore[R11] heartbeat wall-clock stamp is advisory telemetry, never replayed or keyed on
             "time_unix": time.time(),
+            # torchlint: ignore[R11] uptime is advisory telemetry, not replayed state
             "uptime_s": round(time.monotonic() - self._t0, 3),
             "counters": self.registry.scalars(),
             "process": GLOBAL.scalars(),
@@ -173,7 +175,9 @@ class Heartbeat:
         payload = {
             "schema": SCHEMA,
             "rank": self.rank,
+            # torchlint: ignore[R11] snapshot wall-clock stamp is advisory telemetry, never replayed or keyed on
             "time_unix": time.time(),
+            # torchlint: ignore[R11] uptime is advisory telemetry, not replayed state
             "uptime_s": round(time.monotonic() - self._t0, 3),
             "heartbeat_lines": self._seq,
             "process": GLOBAL.scalars(),

@@ -81,6 +81,7 @@ def build_status(
     count for the coverage denominators (the CLI wires
     ``SearchContext.last_dispatch_gates``); None leaves coverage to
     examined-and-rate rows."""
+    # torchlint: ignore[R11] /status uptime is advisory operator telemetry, never replayed
     uptime = time.monotonic() - t0_monotonic
     scalars = registry.scalars()
     hists = registry.histograms()
@@ -92,6 +93,7 @@ def build_status(
             logger.warning("status gates provider failed: %r", e)
     doc = {
         "schema": STATUS_SCHEMA,
+        # torchlint: ignore[R11] /status wall-clock stamp is advisory operator telemetry, never replayed or keyed on
         "time_unix": time.time(),
         "uptime_s": round(uptime, 3),
         "counters": scalars,

@@ -77,8 +77,45 @@ def test_package_has_the_slice_modules():
         "sboxgates_tpu_torch.serve_net.tokens",
         "sboxgates_tpu_torch.serve_net.admission",
         "sboxgates_tpu_torch.serve_net.server",
+        "sboxgates_tpu_torch.analysis",
+        "sboxgates_tpu_torch.analysis.__main__",
+        "sboxgates_tpu_torch.analysis.config",
+        "sboxgates_tpu_torch.analysis.rules",
+        "sboxgates_tpu_torch.analysis.cli",
+        "sboxgates_tpu_torch.analysis.project",
+        "sboxgates_tpu_torch.analysis.callgraph",
+        "sboxgates_tpu_torch.analysis.registries",
+        "sboxgates_tpu_torch.analysis.bucketflow",
+        "sboxgates_tpu_torch.analysis.lockorder",
+        "sboxgates_tpu_torch.analysis.protocol",
+        "sboxgates_tpu_torch.analysis.determinism",
+        "sboxgates_tpu_torch.analysis.durability",
+        "sboxgates_tpu_torch.analysis.trustflow",
+        "sboxgates_tpu_torch.analysis.ordering",
+        "sboxgates_tpu_torch.analysis.lifecycle",
     ):
         assert name in mods
+
+
+def test_analysis_is_pure_stdlib():
+    """The static analyzer runs on any host: importing it (and running its
+    CLI's rule table) loads neither torch nor numpy."""
+    code = (
+        "import sys\n"
+        "from sboxgates_tpu_torch.analysis.cli import main\n"
+        "assert main(['--list-rules']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'numpy', 'jax', 'jaxlib', 'sboxgates_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=60,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_importing_every_module_loads_neither_jax_nor_reference():
