@@ -173,15 +173,36 @@ prints no result.  Phases, each of which raises on failure:
    d. ``--fleet --fleet-candidates 2`` on two shards;
    e. the whole G = 200 pivot space against a random target through the
       sharded stream on 1 x 1, 1 x 2 and (two gloo ranks) 2 x 1 shards:
-      candidates/s, windows and all-reduces per window.
-   ``--mesh`` runs the build and phase 14 alone.
+      candidates/s, windows and all-reduces per window;
+   f. ``--fleet`` on four job shards of the card (``SBG_LOCAL_SHARDS=4``,
+      device route): the DES-8 fleet and the G = 99 resume's 8 restarts
+      (``fleet_des8_d4_dev``, ``fleet_g99_i8_d4_dev``), each lane-form
+      launch split by job shard: the JAX CLI's files at 4 devices, and
+      K3's lane form (DES-8) and K1's (G = 99) launched by every job
+      shard, every launch of it in the run a job shard's
+      (``ops/sweeps.py: JOB_SHARD_LAUNCHES``).
+   ``--mesh`` runs the build and phase 14 a-e alone, ``--fleet-shards``
+   the build, 14f and then 14g: 14f's fleets on one shard and on four
+   shards of the card, in turns (one, four, four, one).
 15. ``--cards`` only, run by hand on a host of several cards (the
    default run needs one card and leaves it out): 15a the G = 99 resume
    on one process over the n cards, a shard per card; 15b the same on n
    processes of one card each, whose collectives run on NCCL, both
    against the JAX CLI's n-device goldens (four cards: ``g99_d4_dev`` and
    ``g99_p4x1_dev`` of tests/torch_mesh_goldens.py, which only this phase
-   reads); 15c the G = 200 space on 1 x 1, 1 x n and n x 1.
+   reads); 15c the G = 200 space on 1 x 1, 1 x n and n x 1; 15d 14f's two
+   fleets with one job shard per card against the JAX CLI's n-device
+   goldens, beside the same command on the first card alone, in turns
+   (one card, n cards, n cards, one card): walls and lane-form launches
+   by card.
+   ``--fleet-cards`` runs the build and 15d alone.
+
+Phase 7a and phase 12, host-bound and the two longest, each run in a child
+process of their own (``chip_smoke.py --phase-7a`` and ``--phase-12``,
+which load the kernels the parent built), started after phase 7e and
+joined after 14f: they share the card and the host's cores with phases
+8-14f, and their walls and those phases' are taken so.  A child's log is
+printed where it is joined; its paths are counted as every other's.
 
 Every CLI run's output directory must hold the JAX CLI's names for the same
 command and nothing else: its XML files, the journal
@@ -192,7 +213,7 @@ tests/torch_journal_goldens.py), the telemetry of an explicit
 the flight dumps where the run makes them.
 
 The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b, 11, 12, 14a,
-14d), phase 6 and 13a's serve are the main path.  Every launch
+14d, 14f), phase 6 and 13a's serve are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
 kernel and K2's on the G = 99 resume with their backend, K5 on the
@@ -3246,6 +3267,132 @@ def phase_mesh(dev, on_path) -> dict:
     return res
 
 
+# The fleets of four job shards (14f: four shards of the one card; 15d: one
+# per card): (name, the JAX CLI's golden at n devices, the one-device golden
+# of the same command, the lane form every job shard must launch).
+FLEET_SHARD_RUNS = (
+    ("des8", "fleet_des8_d{n}_dev", "fleet_des8_dev_lut_o0",
+     "lut5_filter_lanes"),
+    ("g99", "fleet_g99_i8_d{n}_dev", "fleet_g99_i8_dev", "pivot_window_lanes"),
+)
+
+
+def run_fleet_shards(dev, label: str, case: str, shards: int, outdir: str):
+    """One fleet CLI case in process on ``shards`` local shards
+    (``SBG_LOCAL_SHARDS``) of the device route: the run directory byte for
+    byte the JAX CLI's (``case`` a golden of tests/torch_mesh_goldens.py,
+    or of tests/torch_cli_helpers.py at one shard), every output gate
+    checked against its S-box.  Returns (wall, lane-form launches by
+    kernel and job shard, lane-form launches of the run)."""
+    from sboxgates_tpu_torch import cli
+    from sboxgates_tpu_torch.ops import sweeps as tsweeps
+
+    mg, h = mesh_goldens(), job_cases()
+    if case in mg.CLI_CASES:
+        argv, env = mg.CLI_CASES[case][:2]
+    else:
+        argv, env = h.golden_case(case)
+    d = os.path.join(outdir, label)
+    tsweeps.JOB_SHARD_LAUNCHES.clear()
+    before = lane_counts()
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err), \
+            h.environ(dict(env, SBG_LOCAL_SHARDS=str(shards))):
+        rc = cli.main([*argv, "--device", dev.type, "--output-dir", d])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{label} exited {rc}: {err.getvalue()[-2000:]}")
+    if case in mg.CLI_CASES:
+        mg.compare_files(case, d)
+    else:
+        h.compare_run(case, d)
+    verify_outputs(d, argv)
+    lanes = {k: v - before[k] for k, v in lane_counts().items()}
+    return (wall, {k: dict(sorted(v.items()))
+                   for k, v in sorted(tsweeps.JOB_SHARD_LAUNCHES.items())},
+            lanes)
+
+
+def check_job_shards(label: str, kernel: str, n: int, launches: dict,
+                     lanes: dict) -> dict:
+    """Every one of the ``n`` job shards launched ``kernel`` (a lane form),
+    and every launch of it in the run was a job shard's."""
+    by = launches.get(kernel, {})
+    if sorted(by) != list(range(n)) or min(by.values()) < 1 or \
+            sum(by.values()) != lanes[kernel]:
+        raise AssertionError(f"{label}: {kernel} launches by job shard {by}, "
+                             f"{lanes[kernel]} in the run")
+    return by
+
+
+def phase_fleet_shards(dev, on_path) -> dict:
+    """Phase 14f: the fleets of FLEET_SHARD_RUNS on four job shards of the
+    card (``SBG_LOCAL_SHARDS=4``, device route), each a counted path: the
+    JAX CLI's files at 4 devices, and every job shard launching its lane
+    form (K3's on DES-8, K1's on the G = 99 restarts)."""
+    t_phase = time.perf_counter()
+    res: dict = {"paths": {}, "job_shards": {}}
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        for name, case, _, kernel in FLEET_SHARD_RUNS:
+            label, case = f"14f_{name}", case.format(n=4)
+            box = {}
+            res["paths"][label] = on_path(label, lambda lb=label, c=case:
+                                          box.update(r=run_fleet_shards(
+                                              dev, lb, c, 4, outdir)))
+            wall, launches, lanes = box["r"]
+            by = check_job_shards(label, kernel, 4, launches, lanes)
+            res["job_shards"][label] = {kernel: by}
+            log(f"  {label}: {case} on four job shards of the card in "
+                f"{wall:.3f} s, the JAX CLI's files at 4 devices, outputs "
+                f"verified; {kernel} by job shard {by} ({lanes[kernel]} in "
+                f"the run); all lane-form launches by job shard {launches}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    log(f"phase 14f fleet job shards: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def phase_fleet_turns(dev, phase: str, shards: int) -> dict:
+    """The fleets of FLEET_SHARD_RUNS on ``shards`` job shards (the JAX
+    CLI's files at that many devices, every job shard launching the lane
+    form) beside the same command on one shard of the first card (the
+    one-device golden), in turns: one, split, split, one.  Phase 15d (``--cards``, ``--fleet-cards``)
+    gives each card one job shard; ``--fleet-shards`` runs it after 14f
+    with four job shards sharing the one card (14g)."""
+    mg = mesh_goldens()
+    t_phase = time.perf_counter()
+    res: dict = {}
+    outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    modes = ((1, "one"), (shards, "split"), (shards, "split"), (1, "one"))
+    try:
+        for name, case, one, kernel in FLEET_SHARD_RUNS:
+            case = case.format(n=shards)
+            if shards < 2 or case not in mg.CLI_CASES:
+                raise AssertionError(f"{phase}: no golden {case}")
+            runs: dict = {m: [] for _, m in modes}
+            for n, mode in modes:
+                label = f"{phase}_{name}_{mode}_{len(runs[mode])}"
+                wall, launches, lanes = run_fleet_shards(
+                    dev, label, case if n > 1 else one, n, outdir)
+                by = (check_job_shards(label, kernel, n, launches, lanes)
+                      if n > 1 else {})
+                runs[mode].append({"wall": wall, "by_job_shard": by,
+                                   kernel: lanes[kernel]})
+                log(f"  {label}: {wall:.3f} s on {n} job shard(s), the JAX "
+                    f"CLI's files; {kernel} {lanes[kernel]}, by job shard "
+                    f"{by}")
+            res[name] = runs
+            log(f"  {phase} {name}: " + ", ".join(
+                f"{m} {[round(r['wall'], 3) for r in rs]} s"
+                for m, rs in runs.items()))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    log(f"phase {phase} fleet turns: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 KERNELS = {
     "lut5_filter": ("cuda", "sboxgates_tpu_torch/csrc/lut5_filter.cu",
                     "sboxgates_tpu/ops/pallas_filter.py:58", "des_s1"),
@@ -3277,6 +3424,82 @@ def bound(r: dict):
     return attribution().bound(r)
 
 
+def on_path(name, drive) -> dict:
+    """Launch counts of one main-path run: 0 right before, read right
+    after."""
+    from sboxgates_tpu_torch.codegen import cuda_kernel
+    from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile, spectral
+
+    lut5_filter.launches = 0
+    lut5_filter.lane_launches = 0
+    zero_pivot_counts()
+    spectral.launches = 0
+    cuda_kernel.launches = 0
+    drive()
+    counts = lane_counts() | {
+        "lut5_filter": lut5_filter.launches,
+        "pivot_window": pivot_tile.launches["packed"],
+        "pivot_window_tiles": pivot_tile.tiles["packed"],
+        "pivot_pre": pivot_tile.launches["pre"],
+        "pivot_pre_tiles": pivot_tile.tiles["pre"],
+        "pivot_tiles_solved": pivot_tile.tiles["solved"],
+        "pivot_tile": pivot_tile.launches["tile"],
+        "pivot_pre_tile": pivot_tile.launches["pre_tile"],
+        "walsh_score": spectral.launches,
+        "circuit_eval": cuda_kernel.launches,
+    }
+    log(f"  launches on path {name}: {counts}")
+    return counts
+
+
+# Phase 7a and phase 12, host-bound and the script's two longest (260 s
+# and 240 s on an H100 host), each run in a child process of its own
+# beside phases 8-14f (started after phase 7e, so that no phase that
+# times the device shares it before then).  A child prints its log and,
+# as its last line, the counts of its paths; it builds nothing.
+CHILD_PHASES = ("--phase-7a", "--phase-12")
+CHILD_TIMEOUT_S = 900
+
+
+def child_paths(dev, flag: str) -> dict:
+    """The counted paths of one child phase (``CHILD_PHASES``)."""
+    if flag == "--phase-7a":
+        outdir = tempfile.mkdtemp(prefix="chip_smoke-")
+        try:
+            return {"gate_off": on_path("gate_off",
+                                        lambda: phase_gate_device(dev, outdir))}
+        finally:
+            shutil.rmtree(outdir, ignore_errors=True)
+    rounds = phase_rounds(dev, on_path)
+    return {label: val[0] for label, val in rounds.items()
+            if label.startswith("12") and label != "12d" and val[2] is not None}
+
+
+def start_child(flag: str):
+    """(process, its stdout file, start time) of ``chip_smoke.py <flag>``."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                             flag], stdout=out, cwd=ROOT)
+    return proc, out, time.perf_counter()
+
+
+def join_child(flag: str, child, t0: float) -> dict:
+    """Waits for a child phase, prints its log and returns its paths'
+    counts; raises when it failed."""
+    proc, out, started = child
+    rc = proc.wait(timeout=max(1.0, CHILD_TIMEOUT_S - (time.perf_counter() - started)))
+    joined = time.perf_counter()
+    out.seek(0)
+    lines = out.read().splitlines()
+    log(f"child {flag}: exit {rc}, started {started - t0:.1f} s into the run, "
+        f"joined {joined - t0:.1f} s into it; its log:")
+    for line in lines[:-1]:
+        log(line)
+    if rc != 0 or not lines:
+        raise AssertionError(f"child {flag} exited {rc}")
+    return json.loads(lines[-1])
+
+
 def main() -> int:
     import torch
 
@@ -3289,6 +3512,18 @@ def main() -> int:
     from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile, spectral
 
     dev = torch.device("cuda", 0)
+    flag = next((a for a in sys.argv[1:] if a in CHILD_PHASES), None)
+    if flag is not None:
+        # A child phase: the kernels and the native runtime are the ones
+        # the parent built (loaded from build/, not rebuilt).
+        from sboxgates_tpu_torch import _kernels, native
+
+        _kernels.lib()
+        if not native.available():
+            raise AssertionError(f"native host runtime: {native.build_error()}")
+        print(json.dumps(child_paths(dev, flag)), flush=True)
+        return 0
+    t0 = time.perf_counter()
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     phase_build()
@@ -3302,10 +3537,18 @@ def main() -> int:
         # result line.
         print(gpu_line(), flush=True)
         phase_cards(dev)
+        phase_fleet_turns(dev, "15d", torch.cuda.device_count())
         return 0
-    if any(a in sys.argv[1:] for a in ("--rounds", "--net", "--mesh")):
-        # Phase 12 (or, with --net, phase 13; with --mesh, phase 14) alone,
-        # its runs counted as in a whole run; no result line.
+    if "--fleet-cards" in sys.argv[1:]:
+        # Phase 15d alone, on every card of the host; no result line.
+        print(gpu_line(), flush=True)
+        phase_fleet_turns(dev, "15d", torch.cuda.device_count())
+        return 0
+    if any(a in sys.argv[1:] for a in ("--rounds", "--net", "--mesh",
+                                        "--fleet-shards")):
+        # Phase 12 (or, with --net, phase 13; with --mesh, phase 14 a-e;
+        # with --fleet-shards, 14f) alone, its runs counted as in a whole
+        # run; no result line.
         from sboxgates_tpu_torch.ops import lut5_filter as _l5
 
         def counted_path(name, drive) -> dict:
@@ -3326,6 +3569,9 @@ def main() -> int:
             phase_net(dev, counted_path)
         elif "--mesh" in sys.argv[1:]:
             phase_mesh(dev, counted_path)
+        elif "--fleet-shards" in sys.argv[1:]:
+            phase_fleet_shards(dev, counted_path)
+            phase_fleet_turns(dev, "14g", 4)
         else:
             phase_rounds(dev, counted_path, extended=True)
         return 0
@@ -3339,30 +3585,6 @@ def main() -> int:
         # Build and parity only: a first check of new kernels, no result
         # line.
         return 0
-
-    def on_path(name, drive) -> dict:
-        """Launch counts of one main-path run: 0 right before, read right
-        after."""
-        lut5_filter.launches = 0
-        lut5_filter.lane_launches = 0
-        zero_pivot_counts()
-        spectral.launches = 0
-        cuda_kernel.launches = 0
-        drive()
-        counts = lane_counts() | {
-            "lut5_filter": lut5_filter.launches,
-            "pivot_window": pivot_tile.launches["packed"],
-            "pivot_window_tiles": pivot_tile.tiles["packed"],
-            "pivot_pre": pivot_tile.launches["pre"],
-            "pivot_pre_tiles": pivot_tile.tiles["pre"],
-            "pivot_tiles_solved": pivot_tile.tiles["solved"],
-            "pivot_tile": pivot_tile.launches["tile"],
-            "pivot_pre_tile": pivot_tile.launches["pre_tile"],
-            "walsh_score": spectral.launches,
-            "circuit_eval": cuda_kernel.launches,
-        }
-        log(f"  launches on path {name}: {counts}")
-        return counts
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
@@ -3412,10 +3634,10 @@ def main() -> int:
     phase_profile_sweep(dev)
 
     # Phase 7: gate mode on both routes and the default (native) route of
-    # LUT mode, each a counted path; then the gate-step placement figures.
+    # LUT mode, each a counted path (7a in a child, CHILD_PHASES); then the
+    # gate-step placement figures.
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        paths["gate_off"] = on_path("gate_off", lambda: phase_gate_device(dev, outdir))
         paths["gate_native"] = on_path(
             "gate_native", lambda: phase_gate_native(dev, outdir))
         paths["des_l_native"] = on_path(
@@ -3424,9 +3646,6 @@ def main() -> int:
             "g99_native", lambda: phase_engine_service(dev, outdir))
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
-    for path in ("gate_off", "gate_native"):
-        if any(v for k, v in paths[path].items()):
-            raise AssertionError(f"gate mode launched a kernel of K1-K5: {paths[path]}")
     want = {"pivot_window": 8, "pivot_window_tiles": 191, "pivot_pre": 0,
             "walsh_score": 0, "lut5_filter": 0}
     got = {k: paths["g99_native"][k] for k in want}
@@ -3438,7 +3657,31 @@ def main() -> int:
     log(f"  7c: K3 launched {paths['des_l_native']['lut5_filter']} times on the "
         f"native route (phase 3, device route: {paths['des_s1']['lut5_filter']})")
     placement = phase_gate_placement(dev)
+    children = {}
+    try:
+        for flag in CHILD_PHASES:
+            children[flag] = start_child(flag)
+        res = after_gate_phases(dev, paths, par)
+        for flag, child in children.items():
+            paths.update(join_child(flag, child, t0))
+    finally:
+        for proc, out, _ in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    for path in ("gate_off", "gate_native"):
+        if any(v for k, v in paths[path].items()):
+            raise AssertionError(f"gate mode launched a kernel of K1-K5: {paths[path]}")
+    if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
+        raise AssertionError("a search path launched a single-tile K1 or K2")
+    report(dev, paths, par, lanes_par, rates, placement, **res)
+    return 0
 
+
+def after_gate_phases(dev, paths: dict, par: dict) -> dict:
+    """Phases 8-11, 13, 14 and 14f of the default run, each CLI run a
+    counted path added to ``paths``; returns what the report reads."""
     # Phase 8: resilience, each case a counted path.
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
@@ -3505,18 +3748,23 @@ def main() -> int:
     jobs = phase_jobs(dev, on_path)
     for case, (counts, _, _) in jobs.items():
         paths[case] = counts
-    # Phase 12: chained rounds, the serve and the result store.
-    rounds = phase_rounds(dev, on_path)
-    for label, val in rounds.items():
-        if label.startswith("12") and label != "12d" and val[2] is not None:
-            paths[label] = val[0]
+    # Phase 12 (chained rounds, the serve and the result store) runs in a
+    # child (CHILD_PHASES).
     # Phase 13: the HTTP admission front door.
     paths["net_chain8_dev"] = phase_net(dev, on_path)["counts"]
     # Phase 14: several shards and processes on the card.
     mesh = phase_mesh(dev, on_path)
     paths.update(mesh["paths"])
-    if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
-        raise AssertionError("a search path launched a single-tile K1 or K2")
+    # Phase 14f: the fleets of four job shards on the card.
+    fleet_shards = phase_fleet_shards(dev, on_path)
+    paths.update(fleet_shards["paths"])
+    return {"mesh": mesh, "fleet_shards": fleet_shards}
+
+
+def report(dev, paths, par, lanes_par, rates, placement, mesh, fleet_shards):
+    """The kernels' JSON line, the card's line and the result line."""
+    import torch
+
     for name in LANE_KERNELS:
         par[name] = dict(lanes_par[(name, 8)])
         par[name]["also"] = [lanes_par[(name, 64)]]
@@ -3568,7 +3816,10 @@ def main() -> int:
             "bound_formulation": bound_form,
             "library_ms": None, "shape": r["shape"], "also": also,
         } | ({"gemm_only_ms": r["gemm_only_ms"]} if "gemm_only_ms" in r else {})
-          | ({"single_lane_ms": r["single_ms"]} if "single_ms" in r else {}))
+          | ({"single_lane_ms": r["single_ms"]} if "single_ms" in r else {})
+          | ({"job_shard_launches_by_path": {
+              p: by[name] for p, by in fleet_shards["job_shards"].items()
+              if name in by}} if name in LANE_KERNELS else {}))
     for g, r in rates.items():
         log(f"pivot G={g}: {r['cand_per_s']:.6e} cand/s (node), "
             f"{r['sweep_cand_per_s']:.6e} cand/s (sweep alone), "
@@ -3588,7 +3839,6 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         },
     }), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

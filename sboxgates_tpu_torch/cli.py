@@ -46,9 +46,12 @@ package's ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
 group whose mesh spans every rank's shards (rank 0 writes the files), and
 ``--shard-sweep`` gives each process its slice of a several-box or
 permutation sweep instead (journals under ``shard-NN/``);
-``--fleet-candidates C`` pads the fleet's jobs buckets to the n/C job
-shards of the JAX package's (jobs, candidates) fleet mesh, so the seed
-draws are the JAX CLI's; every fleet lane still runs on the first card.
+``--fleet-candidates C`` (and ``--fleet`` on several local shards) builds
+the JAX package's (jobs, candidates) fleet mesh of n/C job shards: the
+jobs buckets are padded to multiples of the job shards, so the seed draws
+are the JAX CLI's, and each job shard launches its lanes' K1 and K3
+lane-form kernels on the first of its C devices (the rest of each round
+runs on the first card).
 
 The job axis, as in the JAX CLI: several S-box files or ``--permute-sweep``
 run a sweep of jobs (``search/multibox.py``; states in per-box or ``pXX/``
@@ -151,9 +154,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the JAX CLI's (jobs, candidates) fleet split of "
                         "the local shards (n/C, C): the jobs buckets are "
                         "padded to multiples of the n/C job shards, so the "
-                        "seed draws match the JAX CLI's; every fleet lane "
-                        "still runs on the first card (default 1; must "
-                        "divide the local shard count)")
+                        "seed draws match the JAX CLI's, and each job "
+                        "shard's lane-form kernels launch on the first of "
+                        "its C devices "
+                        "(default 1; must divide the local shard count)")
     p.add_argument("--fleet-max-wave", type=int, default=256, metavar="N",
                    help="jobs per fleet wave (resident-thread cap, "
                         "default 256).  The wave is the unit per-job "

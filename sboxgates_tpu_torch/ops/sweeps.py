@@ -41,13 +41,19 @@ Conventions:
   launch for all lanes.  The 7-LUT solver's small products stay
   ``torch.matmul``: its counts are small integers, exact in bf16 and
   float32.
+- A fleet of several job shards (:func:`job_shards`) launches those lane
+  forms split by job shard: each shard's lanes in one launch on its own
+  device, the rest of the round on the call's device, still one sync per
+  round for all lanes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import sys
-from typing import List, Optional, Sequence, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -536,24 +542,98 @@ def _unrank_combos_wide(binom_wide, g, k, ranks):
     return _unrank_combos(binom_wide, g, k, ranks)
 
 
-def _filter5(tables, combos, target, mask, merged: bool):
+# -------------------------------------------------------------------------
+# Job shards: a fleet's lane-form launches split by job shard
+# -------------------------------------------------------------------------
+
+_JOBS = threading.local()
+
+#: Lane-form launches of job shards (:func:`job_shards`), by kernel
+#: (``"lut5_filter_lanes"``, ``"pivot_window_lanes"``) and job shard.
+JOB_SHARD_LAUNCHES: Dict[str, Dict[int, int]] = {}
+
+
+@contextlib.contextmanager
+def job_shards(devices):
+    """Runs the block's lane-form launches split by job shard, as the JAX
+    package's ``P("jobs")`` places a fleet's lanes: of an n-row lane-form
+    call, job shard j (of J = ``len(devices)``) owns the rows [j * ceil(n /
+    J), (j + 1) * ceil(n / J)), and its lanes of each K1 or K3 lane-form
+    launch run as one launch on ``devices[j]``, their operands copied there
+    and their outputs back to the call's device.  The split is by job
+    shard, not by device: shards that share a device launch once each."""
+    prev = getattr(_JOBS, "devices", None)
+    _JOBS.devices = list(devices)
+    try:
+        yield
+    finally:
+        _JOBS.devices = prev
+
+
+def job_blocks(rows: Sequence[int], n: int):
+    """(job shard, device, lo, hi) of each run of a launch's lanes that one
+    job shard owns, in lane order, lane i being row ``rows[i]`` of an
+    n-row call; None outside :func:`job_shards`."""
+    devices = getattr(_JOBS, "devices", None)
+    if devices is None:
+        return None
+    per = -(-n // len(devices))
+    out: List[list] = []
+    for i, r in enumerate(rows):
+        j = int(r) // per
+        if out and out[-1][0] == j:
+            out[-1][3] = i + 1
+        else:
+            out.append([j, devices[j], i, i + 1])
+    return [tuple(b) for b in out]
+
+
+def device_ctx(dev):
+    """The current-device context of a launch on ``dev`` (a kernel
+    launches on the current card, whatever its pointers' device)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _job_launch(kernel: str, shard: int, dev, fn, *args, **kw):
+    """``fn(*args, **kw)``, a lane-form launch of job shard ``shard``, on
+    ``dev``; counted in :data:`JOB_SHARD_LAUNCHES`."""
+    with device_ctx(dev):
+        out = fn(*args, **kw)
+    by = JOB_SHARD_LAUNCHES.setdefault(kernel, {})
+    by[shard] = by.get(shard, 0) + 1
+    return out
+
+
+def _filter5(tables, combos, target, mask, merged: bool, rows=None, n=0):
     """K3 over the lanes' 5-tuples (tables [L, B, 8], combos int32 [L, N,
     5]): its lane form for a merged call, else (one lane) the single-lane
-    kernel.  Returns (req1, req0) int32 [L, N]."""
+    kernel.  Under :func:`job_shards`, lane i being row ``rows[i]`` of the
+    n-row call, one lane-form launch per job shard.  Returns (req1, req0)
+    int32 [L, N] on the operands' device."""
     if merged:
-        return lut5_filter_cells_lanes(tables, combos, target.contiguous(),
-                                       mask.contiguous())
+        ops = (tables, combos, target.contiguous(), mask.contiguous())
+        blocks = None if rows is None else job_blocks(rows, n)
+        if blocks is None:
+            return lut5_filter_cells_lanes(*ops)
+        outs = [_job_launch("lut5_filter_lanes", j, d, lut5_filter_cells_lanes,
+                            *(x[lo:hi].to(d) for x in ops))
+                for j, d, lo, hi in blocks]
+        return tuple(torch.cat([o[k].to(tables.device) for o in outs])
+                     for k in (0, 1))
     r1, r0 = lut5_filter_cells(tables[0], combos[0], target[0].contiguous(),
                                mask[0].contiguous())
     return r1[None], r0[None]
 
 
 def _chunk_constraints_lanes(tables, binom, g, gmax, k, target, mask, excl,
-                             ranks, total, merged):
+                             ranks, total, merged, rows=None, n=0):
     """Per-chunk work of every lane: unrank -> exclusion mask -> cell
     constraints.  tables [L, B, 8], g/total int64 [L], target/mask/excl
     [L, W], ranks int64 [L, N] -> (feasible [L, N] bool, req1, req0) with
-    req [L, N] (k <= 5) or [L, N, 2^k/32] packed."""
+    req [L, N] (k <= 5) or [L, N, 2^k/32] packed; lane i is row
+    ``rows[i]`` of an n-row call (:func:`_filter5`)."""
     tot = total[:, None]
     valid = ranks < tot
     ranks = torch.minimum(ranks, tot - 1)
@@ -562,7 +642,7 @@ def _chunk_constraints_lanes(tables, binom, g, gmax, k, target, mask, excl,
     valid = valid & ~hit.any(dim=0)
     if k == 5:
         r1, r0 = _filter5(tables, combos.permute(1, 2, 0).to(_I32).contiguous(),
-                          target, mask, merged)
+                          target, mask, merged, rows, n)
         return valid & ((r1 & r0) == 0), r1, r0
     li = torch.arange(tables.shape[0], device=tables.device)[None, :, None]
     tabs = tables[li, combos].permute(0, 1, 3, 2)       # [k, L, W, N]
@@ -602,6 +682,7 @@ class _Lanes:
             pick(self.tables), self.binom, pick(self.g),
             max(self.g_host[j] for j in idx), k, pick(self.target),
             pick(self.mask), pick(self.excl), ranks, up[1], self.merged,
+            idx, self.tables.shape[0],
         )
         return feasible, r1, r0, ranks, [_wrap32(s) for s in seeds]
 
@@ -1019,13 +1100,16 @@ class _PivotLanes:
     card, one copy for all lanes.  A merged call (several rows) stacks the
     lanes, padding the pair arrays to the longest (pad rows invalid), and
     launches K1's lane form on words (a ``pre`` row's int8 lanes are packed
-    back); a call of one row launches the backend's window kernel
-    (:data:`PIVOT_WINDOWS`) on the row's own operands."""
+    back), under :func:`job_shards` one launch per job shard on its device,
+    its lanes' operands copied there once; a call of one row launches the
+    backend's window kernel (:data:`PIVOT_WINDOWS`) on the row's own
+    operands."""
 
     def __init__(self, rows, base, t_end, backend: str, tl: int, th: int):
         self.tl, self.th = tl, th
         self.lanes = len(rows)
         self.merged = self.lanes > 1
+        self.blocks = None
         self.dev = rows[0][1].device
         self.descs = [np.asarray(r[6], np.int32).reshape(-1, 5) for r in rows]
         self.t_end = [int(e) for e in t_end]
@@ -1046,7 +1130,15 @@ class _PivotLanes:
                 *(_pad_rows([words(r[j]) for r in rows], 1) for j in (1, 2, 3)),
                 *(_pad_rows([r[j] for r in rows], 0, fill=False) for j in (4, 5)),
             )
-            self.ddescs = upload(dd, _I32, self.dev)
+            self.blocks = job_blocks(range(self.lanes), self.lanes)
+            if self.blocks is None:
+                self.ddescs = upload(dd, _I32, self.dev)
+            else:
+                self.block_ops = [
+                    (*(x[lo:hi].to(d) for x in self.ops),
+                     upload(dd[lo:hi], _I32, d))
+                    for _, d, lo, hi in self.blocks
+                ]
         else:
             if backend not in PIVOT_BACKENDS:
                 raise ValueError(f"unknown pivot backend {backend!r}")
@@ -1055,6 +1147,9 @@ class _PivotLanes:
             self.ddescs = upload(dd[0], _I32, self.dev)
 
     def buffers(self, n: int):
+        if self.blocks is not None:
+            return [window_lanes_buffers(hi - lo, n, self.tl, self.th, d)
+                    for _, d, lo, hi in self.blocks]
         if self.merged:
             return window_lanes_buffers(self.lanes, n, self.tl, self.th, self.dev)
         return window_buffers(n, self.tl, self.th, self.dev)
@@ -1063,9 +1158,20 @@ class _PivotLanes:
         """One window: tiles [w0[l], w0[l] + width) of every lane, cut at
         its t_end, one launch.  Returns (req1, req0, feas), tile z of lane
         l being :meth:`tile` (x, l, z), and the reader of the counts
-        [lanes][tiles] (:func:`_counts_reader`)."""
+        [lanes][tiles] (:func:`_counts_reader`); split by job shard, req1,
+        req0 and feas are lists of the shards' blocks, the counts gathered
+        on the call's device for one read."""
         t0 = [w - b for w, b in zip(w0, self.base)]
         te = [e - b for e, b in zip(self.t_end, self.base)]
+        if self.blocks is not None:
+            outs = [_job_launch("pivot_window_lanes", j, d, pivot_window_lanes,
+                                *ops, t0[lo:hi], width, te[lo:hi], self.tl,
+                                self.th, out=buf)
+                    for (j, d, lo, hi), ops, buf in zip(self.blocks,
+                                                        self.block_ops, out)]
+            counts = torch.cat([o[3].to(self.dev) for o in outs])
+            return (*([o[k] for o in outs] for k in range(3)),
+                    _counts_reader(counts))
         if self.merged:
             req1, req0, feas, counts = pivot_window_lanes(
                 *self.ops, self.ddescs, t0, width, te, self.tl, self.th, out=out)
@@ -1077,8 +1183,14 @@ class _PivotLanes:
         return req1, req0, feas, lambda: [read()]
 
     def tile(self, x, lane: int, z: int):
-        """Tile ``z`` of lane ``lane`` of a window's words or flags."""
-        return x[lane, z] if self.merged else x[z]
+        """Tile ``z`` of lane ``lane`` of a window's words or flags, on the
+        call's device."""
+        if self.blocks is None:
+            return x[lane, z] if self.merged else x[z]
+        for (_, _, lo, hi), xb in zip(self.blocks, x):
+            if lo <= lane < hi:
+                return xb[lane - lo, z].to(self.dev)
+        raise IndexError(lane)
 
 
 def _counts_reader(counts):

@@ -43,7 +43,6 @@ port does not read).
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -147,8 +146,12 @@ class FleetPlan:
     """The fleet's (jobs, candidates) split (:func:`make_fleet_mesh`): the
     jobs buckets are multiples of ``n_job_shards``, as the JAX package
     pads its job axis for its mesh, which shapes the stacked steps' seed
-    draws.  The stacked launches run on the first local shard's device.
-    A process-spanning fleet is refused, as in the JAX package (a
+    draws, and each lane-form launch of the fleet runs each job shard's
+    block of lanes on that shard's device (``ops/sweeps.py: job_shards``,
+    the JAX package's ``shard_jobs``: ``P("jobs")``).  Job shard j owns the
+    local shards ``local[j*C:(j+1)*C]`` (C candidate shards) and runs on
+    the first of them: the candidate axis splits no lane's sweep here.  A
+    process-spanning fleet is refused, as in the JAX package (a
     multi-process fleet runs ``--shard-sweep``: one local fleet per
     process)."""
 
@@ -161,6 +164,8 @@ class FleetPlan:
         self.mesh = mesh
         self.n_job_shards = mesh.shape[JOBS_AXIS]
         self.n_candidate_shards = mesh.shape[CANDIDATES_AXIS]
+        #: Each job shard's device (several shards may share one).
+        self.job_devices = mesh.local[::self.n_candidate_shards]
 
 
 class MeshPlan:
@@ -208,14 +213,6 @@ def _on(cache: dict, dev, *xs):
     return cache[dev]
 
 
-def _device_ctx(dev):
-    """The current-device context of a shard's launches (a kernel launches
-    on the current card, whatever its pointers' device)."""
-    if dev.type == "cuda":
-        return torch.cuda.device(dev)
-    return contextlib.nullcontext()
-
-
 def _groups(plan: MeshPlan):
     """Local shard positions grouped by device, in shard order."""
     out: Dict[torch.device, List[int]] = {}
@@ -249,7 +246,7 @@ def lut5_fused_step(tables, combos, valid, target, mask, w_tab, m_tab, seed,
         for d, dev in plan.shards():
             tb, tg, mk = _on(cache, dev, tables, target, mask)
             lo = d * per
-            with _device_ctx(dev):
+            with sweeps.device_ctx(dev):
                 parts.append(sweeps.lut_filter(
                     tb, combos[lo:lo + per].to(dev),
                     valid[lo:lo + per].to(dev), tg, mk))
@@ -319,7 +316,7 @@ class _ShardChunks:
                 dtype=torch.int64, device=dev)
             ranks = starts[:, None] + torch.arange(
                 self.per, dtype=torch.int64, device=dev)
-            with _device_ctx(dev):
+            with sweeps.device_ctx(dev):
                 feas, r1, r0 = sweeps._chunk_constraints_lanes(
                     tb, binom, gt, self.g, self.k, tg, mk, ex, ranks, tot,
                     len(idxs) > 1)
@@ -458,7 +455,7 @@ def sharded_pivot_stream(
             if nz == 0:
                 parts.append(None)
                 continue
-            with _device_ctx(s["dev"]):
+            with sweeps.device_ctx(s["dev"]):
                 req1, req0, feas, counts = window(
                     *s["ops"][:6], s["descs"], r0, nz, s["T"], tl, th,
                     out=s["bufs"][k % 2], shard=s["d"],
@@ -484,7 +481,7 @@ def sharded_pivot_stream(
                 ts = [start_t + r * n + shards[i]["d"] for i in idxs]
                 pivot_tile.tiles["solved"] += len(idxs)
                 w_t, m_t = shards[idxs[0]]["ops"][6:8]
-                with _device_ctx(dev):
+                with sweeps.device_ctx(dev):
                     rows = sweeps._pivot_solve_lanes(
                         *(torch.stack([parts[i][j][z].reshape(-1)
                                        for i in idxs])

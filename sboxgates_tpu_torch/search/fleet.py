@@ -27,8 +27,14 @@ Unlike the JAX package, a merged rendezvous group runs exactly its own
 lanes (no duplicated pad lanes: nothing is compiled per shape here).  A
 fleet plan (``--fleet-candidates``, or several local shards:
 :class:`..parallel.FleetPlan`) makes the jobs buckets multiples of its
-job shards, as the JAX package's job-axis mesh does; its stacked launches
-run on the first local shard's device.
+job shards, as the JAX package's job-axis mesh does, and with more than
+one job shard every merged group and every stacked call launches K1's and
+K3's lane forms split by job shard (:func:`..ops.sweeps.job_shards`):
+each shard's block of lanes as one launch on its own device, the rest of
+the round, and its one sync, on the first device.  The call stays one
+dispatch (one span, one deadline window, one ``dispatch.sweep`` hit, one
+count), as one pjit call over the JAX package's job axis is; a singleton
+stays on the first device.
 """
 
 from __future__ import annotations
@@ -82,6 +88,16 @@ def job_shards(ctx) -> int:
     return 1 if plan is None else plan.n_job_shards
 
 
+def call_lanes(plan, lanes_fn, rows, statics: dict):
+    """``lanes_fn(rows, **statics)``, its lane-form launches split by job
+    shard under a plan of several job shards (:func:`..ops.sweeps.
+    job_shards`)."""
+    if plan is None or plan.n_job_shards == 1:
+        return lanes_fn(rows, **statics)
+    with sweeps.job_shards(plan.job_devices):
+        return lanes_fn(rows, **statics)
+
+
 def prev_fleet_bucket(b: int) -> Optional[int]:
     """The next smaller jobs bucket, or None below the smallest."""
     prev = None
@@ -102,8 +118,9 @@ class FleetRendezvous(Rendezvous):
     merges_streams = True
 
     def __init__(self, n_threads: int, timer=None, deadline=None,
-                 deadline_stats=None):
+                 deadline_stats=None, plan=None):
         super().__init__(n_threads, timer=timer)
+        self.plan = plan
         self.deadline = deadline
         self.deadline_stats = deadline_stats
         self.stats.ensure("fleet_dispatches", "fleet_singletons",
@@ -146,7 +163,8 @@ class FleetRendezvous(Rendezvous):
             # One merged group = one lane-form call = one "dispatch" span.
             with _ttrace.span(f"fleet[{name}]", "dispatch", lanes=n,
                               merged=n, stacked=stacked, g=gmax):
-                return lanes_fn([e["args"] for e in entries], **statics)
+                return call_lanes(self.plan, lanes_fn,
+                                  [e["args"] for e in entries], statics)
 
         out = self._guarded(merged, f"fleet[{name}]", labels)
         for e, r in zip(entries, out):
@@ -185,7 +203,8 @@ def _run_fleet_wave(ctx, jobs: List[tuple]) -> List[tuple]:
             "split into waves"
         )
     rdv = FleetRendezvous(n, timer=ctx.launch_timer,
-                          deadline=ctx.deadline_cfg, deadline_stats=ctx.stats)
+                          deadline=ctx.deadline_cfg, deadline_stats=ctx.stats,
+                          plan=ctx.fleet_plan)
     seeds = [int(s) for s in ctx.rng.integers(0, 2**31, size=n)]
     results: List[Optional[tuple]] = [None] * n
     errors: List[BaseException] = []
@@ -260,14 +279,15 @@ def toy_fleet_boxes(n: int = 8) -> List:
 
 def _stacked_call(ctx, name, statics, rows, lanes, g=None):
     """One stacked call of a registry sweep's lane form over ``rows`` (one
-    per lane of the jobs bucket): one ``device_dispatches``, one
-    ``stacked[<name>]`` span."""
+    per lane of the jobs bucket), split by job shard under a fleet plan:
+    one ``device_dispatches``, one ``stacked[<name>]`` span."""
     fn = _warmup.KERNELS[name].lanes
 
     def call():
         with _ttrace.span(f"stacked[{name}]", "dispatch", lanes=lanes, g=g,
                           stacked=True):
-            return fn(rows, **statics)
+            return call_lanes(getattr(ctx, "fleet_plan", None), fn, rows,
+                              statics)
 
     return ctx.dispatch(name, call, g=g)
 

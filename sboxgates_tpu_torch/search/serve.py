@@ -289,6 +289,7 @@ class _Wave:
         self.rdv = FleetRendezvous(
             len(jobs), timer=ctx.launch_timer,
             deadline=ctx.deadline_cfg, deadline_stats=ctx.stats,
+            plan=ctx.fleet_plan,
         )
 
     @property

@@ -310,7 +310,8 @@ def reset() -> None:
 
 
 class LaunchTimer:
-    """Pending launch timings of one registry: pooled CUDA event pairs and
+    """Pending launch timings of one registry: pooled CUDA event pairs
+    (by device: an event records only on a stream of its own card) and
     the launches still waiting for their end event.  Thread-safe."""
 
     #: Most pending launches kept; older ones are dropped unread (a run
@@ -321,19 +322,21 @@ class LaunchTimer:
         self.registry = registry
         self._lock = threading.Lock()
         self._pending: List[tuple] = []
-        self._pool: List[tuple] = []
+        self._pool: Dict[object, List[tuple]] = {}
 
     def _take_pair(self, stream):
+        """(start, end, device) events for a launch on ``stream``."""
         with self._lock:
-            if self._pool:
-                return self._pool.pop()
+            pool = self._pool.get(stream.device)
+            if pool:
+                return pool.pop()
         import torch
 
         pair = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
+                torch.cuda.Event(enable_timing=True), stream.device)
         # torch creates an event's CUDA handle at its first record; the
         # kernel's entry point records the handle itself from then on.
-        for ev in pair:
+        for ev in pair[:2]:
             ev.record(stream)
         return pair
 
@@ -363,10 +366,10 @@ class LaunchTimer:
             (done if item[1][1].query() else keep).append(item)
         with self._lock:
             self._pending = keep + self._pending
-        for key, (start, end), gate in done:
-            self.observe(key, start.elapsed_time(end) / 1e3, gate)
+        for key, pair, gate in done:
+            self.observe(key, pair[0].elapsed_time(pair[1]) / 1e3, gate)
             with self._lock:
-                self._pool.append((start, end))
+                self._pool.setdefault(pair[2], []).append(pair)
         return len(keep)
 
     def drain(self, timeout_s: float = 5.0) -> int:

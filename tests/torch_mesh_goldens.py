@@ -36,6 +36,7 @@ import tempfile
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_cli_helpers import (  # noqa: E402
+    DES,
     DEV,
     G99_BOX,
     G99_STATE,
@@ -89,6 +90,14 @@ CLI_CASES = {
                          "--seed", "7", FA, FB, FC], DEV, 2, 1),
     "fleet_c2_d8": (["--fleet", "--fleet-candidates", "2", "-l", "-o", "0",
                      "--seed", "1", FA, FB, FC], {}, 8, 1),
+    # Fleets of four job shards on the device route (chip_smoke.py 14f on
+    # four shards of one card, 15d on four cards, and
+    # tests/test_torch_fleet_shards.py): the DES-8 fleet runs K3's lane
+    # form, the G = 99 resume's 8 restarts K1's.
+    "fleet_des8_d4_dev": (["--fleet", "-l", "-o", "0", "--seed", "1", *DES],
+                          DEV, 4, 1),
+    "fleet_g99_i8_d4_dev": (["--fleet", "-l", "-o", "0", "-i", "8", "--seed",
+                             "1", "-g", G99_STATE, G99_BOX], DEV, 4, 1),
 }
 
 #: case -> (worker, extra argv, environment of every rank, environment of
