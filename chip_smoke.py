@@ -180,10 +180,19 @@ prints no result.  Phases, each of which raises on failure:
       launch split by job shard: the JAX CLI's files at 4 devices, and
       K3's lane form (DES-8) and K1's (G = 99) launched by every job
       shard, every launch of it in the run a job shard's
-      (``ops/sweeps.py: JOB_SHARD_LAUNCHES``).
+      (``ops/sweeps.py: JOB_SHARD_LAUNCHES``);
+   h. the same fleets on 4 job shards x 2 candidate shards of the card
+      (``SBG_LOCAL_SHARDS=8 --fleet-candidates 2``; ``fleet_des8_c2_d8_dev``,
+      ``fleet_g99_i8_c2_d8_dev``), each job shard's lane-form launches cut
+      along the candidates into one launch per candidate shard: the JAX
+      CLI's files at 8 devices, the lane form launched by every one of
+      the 8 (job shard, candidate shard) pairs, every launch of it in the
+      run a candidate shard's (``ops/sweeps.py:
+      CANDIDATE_SHARD_LAUNCHES``, by local shard j * 2 + c).
    ``--mesh`` runs the build and phase 14 a-e alone, ``--fleet-shards``
-   the build, 14f and then 14g: 14f's fleets on one shard and on four
-   shards of the card, in turns (one, four, four, one).
+   the build, 14f, 14h and then 14g: 14f's fleets on one shard, on four
+   job shards and on 4 x 2 shards of the card, in turns (one, 4 x 1,
+   4 x 2, 4 x 2, 4 x 1, one).
 15. ``--cards`` only, run by hand on a host of several cards (the
    default run needs one card and leaves it out): 15a the G = 99 resume
    on one process over the n cards, a shard per card; 15b the same on n
@@ -192,16 +201,18 @@ prints no result.  Phases, each of which raises on failure:
    ``g99_p4x1_dev`` of tests/torch_mesh_goldens.py, which only this phase
    reads); 15c the G = 200 space on 1 x 1, 1 x n and n x 1; 15d 14f's two
    fleets with one job shard per card against the JAX CLI's n-device
-   goldens, beside the same command on the first card alone, in turns
-   (one card, n cards, n cards, one card): walls and lane-form launches
-   by card.
-   ``--fleet-cards`` runs the build and 15d alone.
+   goldens, and 15e the same fleets on n/2 job shards x 2 candidate
+   shards, one shard per card (``fleet_des8_c2_d4_dev``,
+   ``fleet_g99_i8_c2_d4_dev`` on four cards), beside the same command on
+   the first card alone, in turns (one card, 15d, 15e, 15e, 15d, one
+   card): walls and lane-form launches by card.
+   ``--fleet-cards`` runs the build and 15d and 15e alone.
 
 Phase 7a and phase 12, host-bound and the two longest, each run in a child
 process of their own (``chip_smoke.py --phase-7a`` and ``--phase-12``,
 which load the kernels the parent built), started after phase 7e and
-joined after 14f: they share the card and the host's cores with phases
-8-14f, and their walls and those phases' are taken so.  A child's log is
+joined after 14h: they share the card and the host's cores with phases
+8-14h, and their walls and those phases' are taken so.  A child's log is
 printed where it is joined; its paths are counted as every other's.
 
 Every CLI run's output directory must hold the JAX CLI's names for the same
@@ -213,7 +224,7 @@ tests/torch_journal_goldens.py), the telemetry of an explicit
 the flight dumps where the run makes them.
 
 The CLI runs (phases 3, 4a, 5, 7a-7d, 8b-8d, 10a, 10b, 11, 12, 14a,
-14d, 14f), phase 6 and 13a's serve are the main path.  Every launch
+14d, 14f, 14h), phase 6 and 13a's serve are the main path.  Every launch
 count is set to 0 right before each of them and read right after it; each
 kernel must have launched on its own path (K3 on DES S1, K1's window
 kernel and K2's on the G = 99 resume with their backend, K5 on the
@@ -3268,12 +3279,16 @@ def phase_mesh(dev, on_path) -> dict:
 
 
 # The fleets of four job shards (14f: four shards of the one card; 15d: one
-# per card): (name, the JAX CLI's golden at n devices, the one-device golden
-# of the same command, the lane form every job shard must launch).
+# per card) and of two candidate shards per job shard (14h: 4 x 2 on eight
+# shards of the one card; 15e: 2 x 2 on four cards): (name, the JAX CLI's
+# golden at n devices, the one-device golden of the same command, the lane
+# form every shard must launch, the JAX CLI's golden at n devices with
+# --fleet-candidates 2).
 FLEET_SHARD_RUNS = (
     ("des8", "fleet_des8_d{n}_dev", "fleet_des8_dev_lut_o0",
-     "lut5_filter_lanes"),
-    ("g99", "fleet_g99_i8_d{n}_dev", "fleet_g99_i8_dev", "pivot_window_lanes"),
+     "lut5_filter_lanes", "fleet_des8_c2_d{n}_dev"),
+    ("g99", "fleet_g99_i8_d{n}_dev", "fleet_g99_i8_dev", "pivot_window_lanes",
+     "fleet_g99_i8_c2_d{n}_dev"),
 )
 
 
@@ -3283,7 +3298,9 @@ def run_fleet_shards(dev, label: str, case: str, shards: int, outdir: str):
     byte the JAX CLI's (``case`` a golden of tests/torch_mesh_goldens.py,
     or of tests/torch_cli_helpers.py at one shard), every output gate
     checked against its S-box.  Returns (wall, lane-form launches by
-    kernel and job shard, lane-form launches of the run)."""
+    kernel and job shard, lane-form launches of the run, lane-form
+    launches by kernel and local shard j * C + c of the (job shard,
+    candidate shard) that made them)."""
     from sboxgates_tpu_torch import cli
     from sboxgates_tpu_torch.ops import sweeps as tsweeps
 
@@ -3294,6 +3311,7 @@ def run_fleet_shards(dev, label: str, case: str, shards: int, outdir: str):
         argv, env = h.golden_case(case)
     d = os.path.join(outdir, label)
     tsweeps.JOB_SHARD_LAUNCHES.clear()
+    tsweeps.CANDIDATE_SHARD_LAUNCHES.clear()
     before = lane_counts()
     buf, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
@@ -3309,87 +3327,122 @@ def run_fleet_shards(dev, label: str, case: str, shards: int, outdir: str):
         h.compare_run(case, d)
     verify_outputs(d, argv)
     lanes = {k: v - before[k] for k, v in lane_counts().items()}
-    return (wall, {k: dict(sorted(v.items()))
-                   for k, v in sorted(tsweeps.JOB_SHARD_LAUNCHES.items())},
-            lanes)
+
+    def by_kernel(counts):
+        return {k: dict(sorted(v.items())) for k, v in sorted(counts.items())}
+
+    return (wall, by_kernel(tsweeps.JOB_SHARD_LAUNCHES), lanes,
+            by_kernel(tsweeps.CANDIDATE_SHARD_LAUNCHES))
 
 
 def check_job_shards(label: str, kernel: str, n: int, launches: dict,
                      lanes: dict) -> dict:
-    """Every one of the ``n`` job shards launched ``kernel`` (a lane form),
-    and every launch of it in the run was a job shard's."""
+    """Every one of the ``n`` shards (job shards, or local shards of a
+    candidate split) launched ``kernel`` (a lane form), and every launch
+    of it in the run was one of theirs."""
     by = launches.get(kernel, {})
     if sorted(by) != list(range(n)) or min(by.values()) < 1 or \
             sum(by.values()) != lanes[kernel]:
-        raise AssertionError(f"{label}: {kernel} launches by job shard {by}, "
+        raise AssertionError(f"{label}: {kernel} launches by shard {by}, "
                              f"{lanes[kernel]} in the run")
     return by
 
 
-def phase_fleet_shards(dev, on_path) -> dict:
+def phase_fleet_shards(dev, on_path, phase: str = "14f",
+                       candidates: int = 1) -> dict:
     """Phase 14f: the fleets of FLEET_SHARD_RUNS on four job shards of the
     card (``SBG_LOCAL_SHARDS=4``, device route), each a counted path: the
     JAX CLI's files at 4 devices, and every job shard launching its lane
-    form (K3's on DES-8, K1's on the G = 99 restarts)."""
+    form (K3's on DES-8, K1's on the G = 99 restarts).  Phase 14h
+    (``candidates`` 2): the same fleets on 4 job shards x 2 candidate
+    shards (``SBG_LOCAL_SHARDS=8 --fleet-candidates 2``): the JAX CLI's
+    files at 8 devices, and every one of the 8 (job shard, candidate
+    shard) pairs launching the lane form, every launch of it a candidate
+    shard's."""
+    shards = 4 * candidates
     t_phase = time.perf_counter()
-    res: dict = {"paths": {}, "job_shards": {}}
+    res: dict = {"paths": {}, "job_shards": {}, "candidate_shards": {}}
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        for name, case, _, kernel in FLEET_SHARD_RUNS:
-            label, case = f"14f_{name}", case.format(n=4)
+        for name, case, _, kernel, ccase in FLEET_SHARD_RUNS:
+            label = f"{phase}_{name}"
+            case = (case if candidates == 1 else ccase).format(n=shards)
             box = {}
             res["paths"][label] = on_path(label, lambda lb=label, c=case:
                                           box.update(r=run_fleet_shards(
-                                              dev, lb, c, 4, outdir)))
-            wall, launches, lanes = box["r"]
+                                              dev, lb, c, shards, outdir)))
+            wall, launches, lanes, local = box["r"]
             by = check_job_shards(label, kernel, 4, launches, lanes)
             res["job_shards"][label] = {kernel: by}
-            log(f"  {label}: {case} on four job shards of the card in "
-                f"{wall:.3f} s, the JAX CLI's files at 4 devices, outputs "
-                f"verified; {kernel} by job shard {by} ({lanes[kernel]} in "
-                f"the run); all lane-form launches by job shard {launches}")
+            split = ""
+            if candidates > 1:
+                by_local = check_job_shards(label, kernel, shards, local, lanes)
+                res["candidate_shards"][label] = {kernel: by_local}
+                split = (f", by (job shard j, candidate shard c) as local "
+                         f"shard j * {candidates} + c {by_local}")
+            log(f"  {label}: {case} on 4 job shards x {candidates} candidate "
+                f"shard(s) of the card in {wall:.3f} s, the JAX CLI's files "
+                f"at {shards} devices, outputs verified; {kernel} by job "
+                f"shard {by}{split} ({lanes[kernel]} in the run); all "
+                f"lane-form launches by job shard {launches}")
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
-    log(f"phase 14f fleet job shards: {time.perf_counter() - t_phase:.1f} s")
+    log(f"phase {phase} fleet shards: {time.perf_counter() - t_phase:.1f} s")
     return res
 
 
-def phase_fleet_turns(dev, phase: str, shards: int) -> dict:
+def phase_fleet_turns(dev, phases, shards: int, cand_shards: int) -> dict:
     """The fleets of FLEET_SHARD_RUNS on ``shards`` job shards (the JAX
     CLI's files at that many devices, every job shard launching the lane
-    form) beside the same command on one shard of the first card (the
-    one-device golden), in turns: one, split, split, one.  Phase 15d (``--cards``, ``--fleet-cards``)
-    gives each card one job shard; ``--fleet-shards`` runs it after 14f
-    with four job shards sharing the one card (14g)."""
+    form), on ``cand_shards`` local shards split as ``cand_shards / 2``
+    job shards x 2 candidate shards (``--fleet-candidates 2``: the JAX
+    CLI's files at that many devices, every local shard launching the lane
+    form, every launch of it a candidate shard's) and the same command on
+    one shard of the first card (the one-device golden), in turns: one,
+    jobs, candidates, candidates, jobs, one.  ``phases`` names the job and
+    the candidate runs: 14g (``--fleet-shards``) puts four job shards and
+    4 x 2 shards on the one card; on n cards (``--cards``,
+    ``--fleet-cards``) 15d gives each card one job shard and 15e one shard
+    of n/2 x 2."""
     mg = mesh_goldens()
     t_phase = time.perf_counter()
     res: dict = {}
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
-    modes = ((1, "one"), (shards, "split"), (shards, "split"), (1, "one"))
+    modes = ((1, "one"), (shards, "jobs"), (cand_shards, "cands"),
+             (cand_shards, "cands"), (shards, "jobs"), (1, "one"))
+    phase = {"one": phases[0], "jobs": phases[0], "cands": phases[1]}
+    title = "/".join(dict.fromkeys(phases))
     try:
-        for name, case, one, kernel in FLEET_SHARD_RUNS:
-            case = case.format(n=shards)
-            if shards < 2 or case not in mg.CLI_CASES:
-                raise AssertionError(f"{phase}: no golden {case}")
-            runs: dict = {m: [] for _, m in modes}
+        for name, case, one, kernel, ccase in FLEET_SHARD_RUNS:
+            cases = {"one": one, "jobs": case.format(n=shards),
+                     "cands": ccase.format(n=cand_shards)}
+            for mode in ("jobs", "cands"):
+                if shards < 2 or cases[mode] not in mg.CLI_CASES:
+                    raise AssertionError(f"{phase[mode]}: no golden "
+                                         f"{cases[mode]}")
+            runs: dict = {m: [] for m in cases}
             for n, mode in modes:
-                label = f"{phase}_{name}_{mode}_{len(runs[mode])}"
-                wall, launches, lanes = run_fleet_shards(
-                    dev, label, case if n > 1 else one, n, outdir)
-                by = (check_job_shards(label, kernel, n, launches, lanes)
-                      if n > 1 else {})
-                runs[mode].append({"wall": wall, "by_job_shard": by,
+                label = f"{phase[mode]}_{name}_{mode}_{len(runs[mode])}"
+                wall, launches, lanes, local = run_fleet_shards(
+                    dev, label, cases[mode], n, outdir)
+                by = {}
+                if mode == "jobs":
+                    by = check_job_shards(label, kernel, n, launches, lanes)
+                elif mode == "cands":
+                    by = check_job_shards(label, kernel, n, local, lanes)
+                runs[mode].append({"wall": wall, "by_shard": by,
                                    kernel: lanes[kernel]})
-                log(f"  {label}: {wall:.3f} s on {n} job shard(s), the JAX "
-                    f"CLI's files; {kernel} {lanes[kernel]}, by job shard "
+                log(f"  {label}: {wall:.3f} s on {n} local shard(s), the JAX "
+                    f"CLI's files ({cases[mode]}); {kernel} {lanes[kernel]}, "
+                    f"by {'local shard' if mode == 'cands' else 'job shard'} "
                     f"{by}")
             res[name] = runs
-            log(f"  {phase} {name}: " + ", ".join(
+            log(f"  {title} {name}: " + ", ".join(
                 f"{m} {[round(r['wall'], 3) for r in rs]} s"
                 for m, rs in runs.items()))
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
-    log(f"phase {phase} fleet turns: {time.perf_counter() - t_phase:.1f} s")
+    log(f"phase {title} fleet turns: {time.perf_counter() - t_phase:.1f} s")
     return res
 
 
@@ -3454,7 +3507,7 @@ def on_path(name, drive) -> dict:
 
 # Phase 7a and phase 12, host-bound and the script's two longest (260 s
 # and 240 s on an H100 host), each run in a child process of its own
-# beside phases 8-14f (started after phase 7e, so that no phase that
+# beside phases 8-14h (started after phase 7e, so that no phase that
 # times the device shares it before then).  A child prints its log and,
 # as its last line, the counts of its paths; it builds nothing.
 CHILD_PHASES = ("--phase-7a", "--phase-12")
@@ -3535,20 +3588,23 @@ def main() -> int:
     if "--cards" in sys.argv[1:]:
         # Phase 15 alone, on every card of the host (four cards); no
         # result line.
+        n = torch.cuda.device_count()
         print(gpu_line(), flush=True)
         phase_cards(dev)
-        phase_fleet_turns(dev, "15d", torch.cuda.device_count())
+        phase_fleet_turns(dev, ("15d", "15e"), n, n)
         return 0
     if "--fleet-cards" in sys.argv[1:]:
-        # Phase 15d alone, on every card of the host; no result line.
+        # Phases 15d and 15e alone, on every card of the host; no result
+        # line.
+        n = torch.cuda.device_count()
         print(gpu_line(), flush=True)
-        phase_fleet_turns(dev, "15d", torch.cuda.device_count())
+        phase_fleet_turns(dev, ("15d", "15e"), n, n)
         return 0
     if any(a in sys.argv[1:] for a in ("--rounds", "--net", "--mesh",
                                         "--fleet-shards")):
         # Phase 12 (or, with --net, phase 13; with --mesh, phase 14 a-e;
-        # with --fleet-shards, 14f) alone, its runs counted as in a whole
-        # run; no result line.
+        # with --fleet-shards, 14f, 14h and 14g) alone, its runs counted as
+        # in a whole run; no result line.
         from sboxgates_tpu_torch.ops import lut5_filter as _l5
 
         def counted_path(name, drive) -> dict:
@@ -3571,7 +3627,8 @@ def main() -> int:
             phase_mesh(dev, counted_path)
         elif "--fleet-shards" in sys.argv[1:]:
             phase_fleet_shards(dev, counted_path)
-            phase_fleet_turns(dev, "14g", 4)
+            phase_fleet_shards(dev, counted_path, "14h", 2)
+            phase_fleet_turns(dev, ("14g", "14g"), 4, 8)
         else:
             phase_rounds(dev, counted_path, extended=True)
         return 0
@@ -3680,7 +3737,7 @@ def main() -> int:
 
 
 def after_gate_phases(dev, paths: dict, par: dict) -> dict:
-    """Phases 8-11, 13, 14 and 14f of the default run, each CLI run a
+    """Phases 8-11, 13, 14, 14f and 14h of the default run, each CLI run a
     counted path added to ``paths``; returns what the report reads."""
     # Phase 8: resilience, each case a counted path.
     outdir = tempfile.mkdtemp(prefix="chip_smoke-")
@@ -3758,10 +3815,15 @@ def after_gate_phases(dev, paths: dict, par: dict) -> dict:
     # Phase 14f: the fleets of four job shards on the card.
     fleet_shards = phase_fleet_shards(dev, on_path)
     paths.update(fleet_shards["paths"])
-    return {"mesh": mesh, "fleet_shards": fleet_shards}
+    # Phase 14h: the same fleets on 4 job shards x 2 candidate shards.
+    fleet_cands = phase_fleet_shards(dev, on_path, "14h", 2)
+    paths.update(fleet_cands["paths"])
+    return {"mesh": mesh, "fleet_shards": fleet_shards,
+            "fleet_candidates": fleet_cands}
 
 
-def report(dev, paths, par, lanes_par, rates, placement, mesh, fleet_shards):
+def report(dev, paths, par, lanes_par, rates, placement, mesh, fleet_shards,
+           fleet_candidates):
     """The kernels' JSON line, the card's line and the result line."""
     import torch
 
@@ -3818,8 +3880,12 @@ def report(dev, paths, par, lanes_par, rates, placement, mesh, fleet_shards):
         } | ({"gemm_only_ms": r["gemm_only_ms"]} if "gemm_only_ms" in r else {})
           | ({"single_lane_ms": r["single_ms"]} if "single_ms" in r else {})
           | ({"job_shard_launches_by_path": {
-              p: by[name] for p, by in fleet_shards["job_shards"].items()
-              if name in by}} if name in LANE_KERNELS else {}))
+              p: by[name] for f in (fleet_shards, fleet_candidates)
+              for p, by in f["job_shards"].items() if name in by},
+              "candidate_shard_launches_by_path": {
+              p: by[name] for p, by in
+              fleet_candidates["candidate_shards"].items() if name in by}}
+             if name in LANE_KERNELS else {}))
     for g, r in rates.items():
         log(f"pivot G={g}: {r['cand_per_s']:.6e} cand/s (node), "
             f"{r['sweep_cand_per_s']:.6e} cand/s (sweep alone), "

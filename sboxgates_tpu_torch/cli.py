@@ -49,9 +49,9 @@ permutation sweep instead (journals under ``shard-NN/``);
 ``--fleet-candidates C`` (and ``--fleet`` on several local shards) builds
 the JAX package's (jobs, candidates) fleet mesh of n/C job shards: the
 jobs buckets are padded to multiples of the job shards, so the seed draws
-are the JAX CLI's, and each job shard launches its lanes' K1 and K3
-lane-form kernels on the first of its C devices (the rest of each round
-runs on the first card).
+are the JAX CLI's, and each job shard's lanes of every K1 and K3
+lane-form launch are split over its C devices, each taking a contiguous
+piece of the candidates (the rest of each round runs on the first card).
 
 The job axis, as in the JAX CLI: several S-box files or ``--permute-sweep``
 run a sweep of jobs (``search/multibox.py``; states in per-box or ``pXX/``
@@ -155,9 +155,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the local shards (n/C, C): the jobs buckets are "
                         "padded to multiples of the n/C job shards, so the "
                         "seed draws match the JAX CLI's, and each job "
-                        "shard's lane-form kernels launch on the first of "
-                        "its C devices "
-                        "(default 1; must divide the local shard count)")
+                        "shard's lane-form launches are split over its C "
+                        "devices, a contiguous piece of the candidates on "
+                        "each (default 1; must divide the local shard "
+                        "count)")
     p.add_argument("--fleet-max-wave", type=int, default=256, metavar="N",
                    help="jobs per fleet wave (resident-thread cap, "
                         "default 256).  The wave is the unit per-job "

@@ -41,10 +41,11 @@ Conventions:
   launch for all lanes.  The 7-LUT solver's small products stay
   ``torch.matmul``: its counts are small integers, exact in bf16 and
   float32.
-- A fleet of several job shards (:func:`job_shards`) launches those lane
-  forms split by job shard: each shard's lanes in one launch on its own
-  device, the rest of the round on the call's device, still one sync per
-  round for all lanes.
+- A fleet of several job or candidate shards (:func:`job_shards`)
+  launches those lane forms split by job shard, each shard's lanes in one
+  launch per candidate shard on that shard's device, over its contiguous
+  piece of the candidates; the rest of the round runs on the call's
+  device, still one sync per round for all lanes.
 """
 
 from __future__ import annotations
@@ -543,7 +544,7 @@ def _unrank_combos_wide(binom_wide, g, k, ranks):
 
 
 # -------------------------------------------------------------------------
-# Job shards: a fleet's lane-form launches split by job shard
+# Job shards: a fleet's lane-form launches split by job and candidate shard
 # -------------------------------------------------------------------------
 
 _JOBS = threading.local()
@@ -552,31 +553,43 @@ _JOBS = threading.local()
 #: (``"lut5_filter_lanes"``, ``"pivot_window_lanes"``) and job shard.
 JOB_SHARD_LAUNCHES: Dict[str, Dict[int, int]] = {}
 
+#: The same launches by kernel and local shard ``j * C + c`` of the
+#: (job shard j, candidate shard c) that made them.
+CANDIDATE_SHARD_LAUNCHES: Dict[str, Dict[int, int]] = {}
+
 
 @contextlib.contextmanager
-def job_shards(devices):
+def job_shards(devices, candidates=None):
     """Runs the block's lane-form launches split by job shard, as the JAX
     package's ``P("jobs")`` places a fleet's lanes: of an n-row lane-form
     call, job shard j (of J = ``len(devices)``) owns the rows [j * ceil(n /
     J), (j + 1) * ceil(n / J)), and its lanes of each K1 or K3 lane-form
-    launch run as one launch on ``devices[j]``, their operands copied there
-    and their outputs back to the call's device.  The split is by job
-    shard, not by device: shards that share a device launch once each."""
-    prev = getattr(_JOBS, "devices", None)
-    _JOBS.devices = list(devices)
+    launch run on its own devices, their operands copied there and their
+    outputs back to the call's device.  ``candidates[j]`` lists job shard
+    j's C candidate shards' devices (default: ``[devices[j]]``, C = 1):
+    the launch's candidate dimension (K3's 5-tuples, K1's window of tiles)
+    is cut into C contiguous pieces (:func:`candidate_pieces`), piece c
+    one launch on ``candidates[j][c]``.  The split is by shard, not by
+    device: shards that share a device launch once each."""
+    devices = list(devices)
+    if candidates is None:
+        candidates = [[d] for d in devices]
+    prev = getattr(_JOBS, "shards", None)
+    _JOBS.shards = (devices, [list(c) for c in candidates])
     try:
         yield
     finally:
-        _JOBS.devices = prev
+        _JOBS.shards = prev
 
 
 def job_blocks(rows: Sequence[int], n: int):
     """(job shard, device, lo, hi) of each run of a launch's lanes that one
     job shard owns, in lane order, lane i being row ``rows[i]`` of an
     n-row call; None outside :func:`job_shards`."""
-    devices = getattr(_JOBS, "devices", None)
-    if devices is None:
+    shards = getattr(_JOBS, "shards", None)
+    if shards is None:
         return None
+    devices = shards[0]
     per = -(-n // len(devices))
     out: List[list] = []
     for i, r in enumerate(rows):
@@ -588,6 +601,28 @@ def job_blocks(rows: Sequence[int], n: int):
     return [tuple(b) for b in out]
 
 
+def candidate_pieces(n: int, parts: int):
+    """(c, lo, hi) of the ``parts`` contiguous pieces of a candidate range
+    of n: piece c is [c * per, min((c + 1) * per, n)), per = ceil(n /
+    parts); empty pieces are left out."""
+    per = -(-n // parts)
+    return [(c, c * per, min((c + 1) * per, n))
+            for c in range(parts) if c * per < n]
+
+
+def _candidate_devices(shard: int):
+    """Job shard ``shard``'s candidate shards' devices (inside
+    :func:`job_shards`)."""
+    return _JOBS.shards[1][shard]
+
+
+def candidate_blocks(shard: int, n: int):
+    """(candidate shard, device, lo, hi) of job shard ``shard``'s pieces of
+    an n-long candidate range (inside :func:`job_shards`)."""
+    devs = _candidate_devices(shard)
+    return [(c, devs[c], lo, hi) for c, lo, hi in candidate_pieces(n, len(devs))]
+
+
 def device_ctx(dev):
     """The current-device context of a launch on ``dev`` (a kernel
     launches on the current card, whatever its pointers' device)."""
@@ -596,13 +631,22 @@ def device_ctx(dev):
     return contextlib.nullcontext()
 
 
-def _job_launch(kernel: str, shard: int, dev, fn, *args, **kw):
-    """``fn(*args, **kw)``, a lane-form launch of job shard ``shard``, on
-    ``dev``; counted in :data:`JOB_SHARD_LAUNCHES`."""
+def _join(parts, dim: int):
+    """``torch.cat(parts, dim)``; a single part as it is (C = 1)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def _job_launch(kernel: str, shard: int, cand: int, dev, fn, *args, **kw):
+    """``fn(*args, **kw)``, a lane-form launch of candidate shard ``cand``
+    of job shard ``shard``, on ``dev``; counted in
+    :data:`JOB_SHARD_LAUNCHES` and :data:`CANDIDATE_SHARD_LAUNCHES`."""
     with device_ctx(dev):
         out = fn(*args, **kw)
     by = JOB_SHARD_LAUNCHES.setdefault(kernel, {})
     by[shard] = by.get(shard, 0) + 1
+    local = shard * len(_candidate_devices(shard)) + cand
+    by = CANDIDATE_SHARD_LAUNCHES.setdefault(kernel, {})
+    by[local] = by.get(local, 0) + 1
     return out
 
 
@@ -610,17 +654,22 @@ def _filter5(tables, combos, target, mask, merged: bool, rows=None, n=0):
     """K3 over the lanes' 5-tuples (tables [L, B, 8], combos int32 [L, N,
     5]): its lane form for a merged call, else (one lane) the single-lane
     kernel.  Under :func:`job_shards`, lane i being row ``rows[i]`` of the
-    n-row call, one lane-form launch per job shard.  Returns (req1, req0)
-    int32 [L, N] on the operands' device."""
+    n-row call, one lane-form launch per job shard and piece of the N
+    5-tuples.  Returns (req1, req0) int32 [L, N] on the operands' device."""
     if merged:
         ops = (tables, combos, target.contiguous(), mask.contiguous())
         blocks = None if rows is None else job_blocks(rows, n)
         if blocks is None:
             return lut5_filter_cells_lanes(*ops)
-        outs = [_job_launch("lut5_filter_lanes", j, d, lut5_filter_cells_lanes,
-                            *(x[lo:hi].to(d) for x in ops))
-                for j, d, lo, hi in blocks]
-        return tuple(torch.cat([o[k].to(tables.device) for o in outs])
+        outs = [[_job_launch("lut5_filter_lanes", j, c, d,
+                             lut5_filter_cells_lanes, tables[lo:hi].to(d),
+                             combos[lo:hi, a:b].contiguous().to(d),
+                             *(x[lo:hi].to(d) for x in ops[2:]))
+                 for c, d, a, b in candidate_blocks(j, combos.shape[1])]
+                for j, _, lo, hi in blocks]
+        return tuple(torch.cat([_join([o[k].to(tables.device)
+                                       for o in parts], 1)
+                                for parts in outs])
                      for k in (0, 1))
     r1, r0 = lut5_filter_cells(tables[0], combos[0], target[0].contiguous(),
                                mask[0].contiguous())
@@ -1100,10 +1149,11 @@ class _PivotLanes:
     card, one copy for all lanes.  A merged call (several rows) stacks the
     lanes, padding the pair arrays to the longest (pad rows invalid), and
     launches K1's lane form on words (a ``pre`` row's int8 lanes are packed
-    back), under :func:`job_shards` one launch per job shard on its device,
-    its lanes' operands copied there once; a call of one row launches the
-    backend's window kernel (:data:`PIVOT_WINDOWS`) on the row's own
-    operands."""
+    back), under :func:`job_shards` one launch per job shard and piece of
+    the window's tiles on its candidate shard's device, each shard's lanes'
+    operands copied once to each of its devices; a call of one row
+    launches the backend's window kernel (:data:`PIVOT_WINDOWS`) on the
+    row's own operands."""
 
     def __init__(self, rows, base, t_end, backend: str, tl: int, th: int):
         self.tl, self.th = tl, th
@@ -1134,11 +1184,16 @@ class _PivotLanes:
             if self.blocks is None:
                 self.ddescs = upload(dd, _I32, self.dev)
             else:
-                self.block_ops = [
-                    (*(x[lo:hi].to(d) for x in self.ops),
-                     upload(dd[lo:hi], _I32, d))
-                    for _, d, lo, hi in self.blocks
-                ]
+                # Each job shard's operands on each of its candidate
+                # shards' devices, once per device.
+                self.block_ops = []
+                for j, _, lo, hi in self.blocks:
+                    on = {}
+                    for d in _candidate_devices(j):
+                        if d not in on:
+                            on[d] = (*(x[lo:hi].to(d) for x in self.ops),
+                                     upload(dd[lo:hi], _I32, d))
+                    self.block_ops.append(on)
         else:
             if backend not in PIVOT_BACKENDS:
                 raise ValueError(f"unknown pivot backend {backend!r}")
@@ -1148,8 +1203,16 @@ class _PivotLanes:
 
     def buffers(self, n: int):
         if self.blocks is not None:
-            return [window_lanes_buffers(hi - lo, n, self.tl, self.th, d)
-                    for _, d, lo, hi in self.blocks]
+            # Piece c of a window exists only for c < its width <= n, and
+            # holds at most ceil(n / C) tiles.
+            out = []
+            for j, _, lo, hi in self.blocks:
+                devs = _candidate_devices(j)
+                per = -(-n // len(devs))
+                out.append([window_lanes_buffers(hi - lo, per, self.tl,
+                                                 self.th, d)
+                            for d in devs[:n]])
+            return out
         if self.merged:
             return window_lanes_buffers(self.lanes, n, self.tl, self.th, self.dev)
         return window_buffers(n, self.tl, self.th, self.dev)
@@ -1159,19 +1222,25 @@ class _PivotLanes:
         its t_end, one launch.  Returns (req1, req0, feas), tile z of lane
         l being :meth:`tile` (x, l, z), and the reader of the counts
         [lanes][tiles] (:func:`_counts_reader`); split by job shard, req1,
-        req0 and feas are lists of the shards' blocks, the counts gathered
-        on the call's device for one read."""
+        req0 and feas are lists of the shards' blocks, each a list of its
+        candidate shards' pieces of the window (:func:`candidate_blocks`:
+        piece c tiles [w0 + c * per, w0 + min((c + 1) * per, width)), per =
+        ceil(width / C)), the counts gathered on the call's device in lane
+        and tile order for one read."""
         t0 = [w - b for w, b in zip(w0, self.base)]
         te = [e - b for e, b in zip(self.t_end, self.base)]
         if self.blocks is not None:
-            outs = [_job_launch("pivot_window_lanes", j, d, pivot_window_lanes,
-                                *ops, t0[lo:hi], width, te[lo:hi], self.tl,
-                                self.th, out=buf)
-                    for (j, d, lo, hi), ops, buf in zip(self.blocks,
-                                                        self.block_ops, out)]
-            counts = torch.cat([o[3].to(self.dev) for o in outs])
-            return (*([o[k] for o in outs] for k in range(3)),
-                    _counts_reader(counts))
+            outs = [[_job_launch("pivot_window_lanes", j, c, d,
+                                 pivot_window_lanes, *ops[d],
+                                 [x + a for x in t0[lo:hi]], b - a, te[lo:hi],
+                                 self.tl, self.th, out=bufs[c])
+                     for c, d, a, b in candidate_blocks(j, width)]
+                    for (j, _, lo, hi), ops, bufs in zip(self.blocks,
+                                                         self.block_ops, out)]
+            counts = torch.cat([_join([o[3].to(self.dev) for o in parts], 1)
+                                for parts in outs])
+            return (*([[o[k] for o in parts] for parts in outs]
+                      for k in range(3)), _counts_reader(counts))
         if self.merged:
             req1, req0, feas, counts = pivot_window_lanes(
                 *self.ops, self.ddescs, t0, width, te, self.tl, self.th, out=out)
@@ -1189,7 +1258,8 @@ class _PivotLanes:
             return x[lane, z] if self.merged else x[z]
         for (_, _, lo, hi), xb in zip(self.blocks, x):
             if lo <= lane < hi:
-                return xb[lane - lo, z].to(self.dev)
+                per = xb[0].shape[1]
+                return xb[z // per][lane - lo, z % per].to(self.dev)
         raise IndexError(lane)
 
 

@@ -147,13 +147,15 @@ class FleetPlan:
     jobs buckets are multiples of ``n_job_shards``, as the JAX package
     pads its job axis for its mesh, which shapes the stacked steps' seed
     draws, and each lane-form launch of the fleet runs each job shard's
-    block of lanes on that shard's device (``ops/sweeps.py: job_shards``,
+    block of lanes on that shard's devices (``ops/sweeps.py: job_shards``,
     the JAX package's ``shard_jobs``: ``P("jobs")``).  Job shard j owns the
-    local shards ``local[j*C:(j+1)*C]`` (C candidate shards) and runs on
-    the first of them: the candidate axis splits no lane's sweep here.  A
-    process-spanning fleet is refused, as in the JAX package (a
-    multi-process fleet runs ``--shard-sweep``: one local fleet per
-    process)."""
+    local shards ``local[j*C:(j+1)*C]`` (C candidate shards): with C > 1
+    each of its launches is cut along the candidates (K3's 5-tuples, K1's
+    window of tiles) into C contiguous pieces, piece c on local shard
+    ``j*C + c``, as each fleet lane's candidate sweep partitions over
+    ``"candidates"`` in the JAX package.  A process-spanning fleet is
+    refused, as in the JAX package (a multi-process fleet runs
+    ``--shard-sweep``: one local fleet per process)."""
 
     def __init__(self, mesh: Mesh):
         if mesh.spans_processes:
@@ -164,8 +166,12 @@ class FleetPlan:
         self.mesh = mesh
         self.n_job_shards = mesh.shape[JOBS_AXIS]
         self.n_candidate_shards = mesh.shape[CANDIDATES_AXIS]
-        #: Each job shard's device (several shards may share one).
-        self.job_devices = mesh.local[::self.n_candidate_shards]
+        c = self.n_candidate_shards
+        #: Each job shard's first device (several shards may share one).
+        self.job_devices = mesh.local[::c]
+        #: Each job shard's C candidate shards' devices.
+        self.candidate_devices = [mesh.local[j * c:(j + 1) * c]
+                                  for j in range(self.n_job_shards)]
 
 
 class MeshPlan:

@@ -28,13 +28,14 @@ lanes (no duplicated pad lanes: nothing is compiled per shape here).  A
 fleet plan (``--fleet-candidates``, or several local shards:
 :class:`..parallel.FleetPlan`) makes the jobs buckets multiples of its
 job shards, as the JAX package's job-axis mesh does, and with more than
-one job shard every merged group and every stacked call launches K1's and
-K3's lane forms split by job shard (:func:`..ops.sweeps.job_shards`):
-each shard's block of lanes as one launch on its own device, the rest of
-the round, and its one sync, on the first device.  The call stays one
-dispatch (one span, one deadline window, one ``dispatch.sweep`` hit, one
-count), as one pjit call over the JAX package's job axis is; a singleton
-stays on the first device.
+one job or candidate shard every merged group and every stacked call
+launches K1's and K3's lane forms split by job shard
+(:func:`..ops.sweeps.job_shards`): each shard's block of lanes as one
+launch per candidate shard, on that shard's device, over its contiguous
+piece of the candidates, and the rest of the round, and its one sync, on
+the first device.  The call stays one dispatch (one span, one deadline
+window, one ``dispatch.sweep`` hit, one count), as one pjit call over the
+JAX package's job axis is; a singleton stays on the first device.
 """
 
 from __future__ import annotations
@@ -90,11 +91,15 @@ def job_shards(ctx) -> int:
 
 def call_lanes(plan, lanes_fn, rows, statics: dict):
     """``lanes_fn(rows, **statics)``, its lane-form launches split by job
-    shard under a plan of several job shards (:func:`..ops.sweeps.
-    job_shards`)."""
-    if plan is None or plan.n_job_shards == 1:
+    shard, and by candidate shard within each, under a plan of several
+    job or candidate shards (:func:`..ops.sweeps.job_shards`)."""
+    if plan is None or plan.n_job_shards * plan.n_candidate_shards == 1:
         return lanes_fn(rows, **statics)
-    with sweeps.job_shards(plan.job_devices):
+    # A plan of C = 1 enters the job shards alone, as before the candidate
+    # axis (each job shard its own one candidate shard).
+    split = ({} if plan.n_candidate_shards == 1
+             else {"candidates": plan.candidate_devices})
+    with sweeps.job_shards(plan.job_devices, **split):
         return lanes_fn(rows, **statics)
 
 

@@ -214,7 +214,7 @@ def test_without_a_plan_or_with_one_job_shard_the_call_is_not_split(counts):
         seen.append((r, sweeps.job_blocks(range(len(r)), len(r))))
         return [x[0] * k for x in r]
 
-    for plan in (None, _plan([CPU, CPU], candidates=2)):
+    for plan in (None, _plan([CPU])):
         assert tfleet.call_lanes(plan, lanes_fn, rows, {"k": 3}) == \
             [0, 3, 6, 9, 12]
     assert seen == [(rows, None)] * 2

@@ -98,6 +98,20 @@ CLI_CASES = {
                           DEV, 4, 1),
     "fleet_g99_i8_d4_dev": (["--fleet", "-l", "-o", "0", "-i", "8", "--seed",
                              "1", "-g", G99_STATE, G99_BOX], DEV, 4, 1),
+    # The same fleets on two candidate shards per job shard: 4 x 2 at 8
+    # devices (chip_smoke.py 14h on eight shards of one card, and
+    # tests/test_torch_fleet_candidates.py) and 2 x 2 at 4 devices
+    # (chip_smoke.py 15e on four cards).
+    "fleet_des8_c2_d8_dev": (["--fleet", "--fleet-candidates", "2", "-l",
+                              "-o", "0", "--seed", "1", *DES], DEV, 8, 1),
+    "fleet_g99_i8_c2_d8_dev": (["--fleet", "--fleet-candidates", "2", "-l",
+                                "-o", "0", "-i", "8", "--seed", "1", "-g",
+                                G99_STATE, G99_BOX], DEV, 8, 1),
+    "fleet_des8_c2_d4_dev": (["--fleet", "--fleet-candidates", "2", "-l",
+                              "-o", "0", "--seed", "1", *DES], DEV, 4, 1),
+    "fleet_g99_i8_c2_d4_dev": (["--fleet", "--fleet-candidates", "2", "-l",
+                                "-o", "0", "-i", "8", "--seed", "1", "-g",
+                                G99_STATE, G99_BOX], DEV, 4, 1),
 }
 
 #: case -> (worker, extra argv, environment of every rank, environment of
