@@ -10,7 +10,11 @@ prints no result.  Phases, each of which raises on failure:
    (one process per source, in parallel) and, at the same time, the native
    host runtime (csrc/runtime.cpp, with the host's C++ compiler) into
    build/torch_native/, and prints the build seconds; fails if either does
-   not build or load;
+   not build or load; then the tensor-core probe (csrc/tc_probe.cu, under
+   2 s): the 1-bit (AND + POPC) and int8 rates of mma.sync and wgmma in
+   tests/s, beside the card's name and power limit (the 1-bit route of
+   K1's lane form, and the peak ``telemetry/attribution.py`` bounds it
+   by);
 2. parity — each kernel against its plain PyTorch version on the card, on
    seeded inputs at the shapes the search gives it: the 5-LUT filter (K3)
    at N = 2^17 candidates over 64- and 512-row tables, with a full mask,
@@ -113,7 +117,11 @@ prints no result.  Phases, each of which raises on failure:
       8c leaves a ``deadline_exhausted`` and a ``circuit_breaker`` dump,
       each with its heartbeat incident line;
 11. the job axis (JOB_RUNS, goldens of tests/torch_job_goldens.py), and
-   11e: the lane forms against their plain versions (run after phase 2);
+   11e: the lane forms against their plain versions (run after phase 2;
+   K1's at 8 lanes x 8 tiles and 64 x 1 of 256 x 512 and at 16 x 4 of a
+   203 x 301 tile, off the kernel's block grid), and K1's lane form at one
+   lane beside K1's window kernel on the same 64 tiles, at 256 x 512 and
+   512 x 512;
 12. chained rounds, the serve and the result store (ROUND_RUNS, goldens of
    tests/torch_round_goldens.py):
    a. one round-driver window of the planted chain, its host syncs
@@ -1973,6 +1981,130 @@ def verify_outputs(d: str, argv) -> int:
     return n
 
 
+#: The tensor-core probe's kinds (csrc/tc_probe.cu): kind -> (label,
+#: 256-position tests per instruction, operations 2 M N K per instruction,
+#: blocks per SM, steps per launch).  An int8 "test" is K2's: eight k32
+#: products make one 256-position count.
+TC_PROBE = {
+    0: ("b1 mma.sync m16n8k256", 16 * 8, 2 * 16 * 8 * 256, 4, 2048),
+    1: ("s8 mma.sync m16n8k32", 16 * 8 // 8, 2 * 16 * 8 * 32, 4, 2048),
+    2: ("b1 wgmma m64n128k256", 64 * 128, 2 * 64 * 128 * 256, 3, 1024),
+    3: ("s8 wgmma m64n128k32", 64 * 128 // 8, 2 * 64 * 128 * 32, 3, 1024),
+}
+#: The probe's overlap kinds: b1 mma.sync alone, LOP3 alone, both, on the
+#: same grid (2 blocks of 8 warps per SM, as the lane kernel runs).
+TC_OVERLAP = {4: "b1 mma.sync", 5: "LOP3", 6: "both"}
+
+
+def phase_tc_probe(dev) -> dict:
+    """The tensor-core rates of TC_PROBE (csrc/tc_probe.cu), each the best
+    of 5 launches after a warm-up (CUDA events), beside the integer pipe's
+    rate for K1's AND-OR chain (580 operations per candidate's 64 tests at
+    ``attribution.PEAKS``), and TC_OVERLAP's times (1-bit products and
+    LOP3 alone and together on one SM); one line with the card's name and
+    power limit.  Returns {label: {ms, instr_per_s, tests_per_s,
+    ops_per_s}} and ``overlap_ms``."""
+    import ctypes
+
+    import torch
+
+    from sboxgates_tpu_torch import _kernels
+
+    t_phase = time.perf_counter()
+    lib = _kernels.lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.empty(1 << 16, dtype=torch.int32, device=dev)
+    issued = ctypes.c_longlong(0)
+    out = {}
+    for kind, (label, tests, ops, per_sm, steps) in TC_PROBE.items():
+        def launch(kind=kind, blocks=per_sm * sms, steps=steps):
+            _kernels.check(lib.sbgt_tc_probe(
+                kind, blocks, steps, sink.data_ptr(), ctypes.addressof(issued),
+                _kernels.stream_ptr(dev)), "tc_probe")
+        ms = min(time_ms(launch, 1, warmup=1 if i == 0 else 0) for i in range(5))
+        per_s = issued.value / ms * 1e3
+        out[label] = {"ms": ms, "instr_per_s": per_s, "tests_per_s": per_s * tests,
+                      "ops_per_s": per_s * ops}
+    overlap = {}
+    for kind, label in TC_OVERLAP.items():
+        def launch(kind=kind):
+            _kernels.check(lib.sbgt_tc_probe(
+                kind, 2 * sms, 1024, sink.data_ptr(), ctypes.addressof(issued),
+                _kernels.stream_ptr(dev)), "tc_probe")
+        overlap[label] = min(time_ms(launch, 1, warmup=1 if i == 0 else 0)
+                             for i in range(5))
+    out["overlap_ms"] = overlap
+    chain = 64 / (580 / attribution().PEAKS["gpu"]["int32_ops_per_s"])
+    out["integer pipe, K1's chain"] = {"tests_per_s": chain}
+    log(f"tc probe ({gpu_line()}), 256-position tests/s: " + "; ".join(
+        f"{k} {r['tests_per_s']:.4e}"
+        + (f" ({r['instr_per_s']:.4e} instr/s, {r['ops_per_s']:.4e} ops/s)"
+           if "ops_per_s" in r else "") for k, r in out.items()
+        if k != "overlap_ms")
+        + f"; 1-bit over int8: mma.sync "
+        f"{out[TC_PROBE[0][0]]['ops_per_s'] / out[TC_PROBE[1][0]]['ops_per_s']:.3f}x,"
+        f" wgmma {out[TC_PROBE[2][0]]['ops_per_s'] / out[TC_PROBE[3][0]]['ops_per_s']:.3f}x"
+        f" in ops/s; b1 mma.sync and LOP3 on one SM: "
+        f"{overlap['b1 mma.sync']:.4f} + {overlap['LOP3']:.4f} ms alone, "
+        f"{overlap['both']:.4f} ms together; {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def one_lane_beside_k1(dev) -> dict:
+    """K1's lane form at one lane (lanes = 1, n = 64) beside K1's window
+    kernel (``pivot_window``) on the same 64 tiles, at 256 x 512 (phase
+    4a's G = 99 state and planted target, from tile 100) and 512 x 512
+    (the G = 200 state of phase 2, from its middle tile): word for word
+    equal, then ms per launch in turns (K1, lanes, lanes, K1; CUDA events)
+    and device ms from torch.profiler.  Returns {(tl, th): {...}}."""
+    import numpy as np
+    import torch
+
+    from sboxgates_tpu_torch.core import ttable as tt
+    from sboxgates_tpu_torch.ops import pivot_tile, sweeps
+    from sboxgates_tpu_torch.search.lut import PivotOperands
+
+    rng = np.random.default_rng(0)
+    st99, st200 = random_state(99, 11), random_state(200, 7)
+    pad = lambda st, g: sweeps.as_words(  # noqa: E731
+        np.pad(st.live_tables(), ((0, 512 - g), (0, 0))), dev)
+    states = {
+        (256, 512): (99, pad(st99, 99), tt.target_table(planted_sbox(st99), 0),
+                     tt.mask_table(8), 100),
+        (512, 512): (200, pad(st200, 200),
+                     rng.integers(0, 2**32, size=8, dtype=np.uint64).astype(np.uint32),
+                     np.full(8, 0xFFFFFFFF, np.uint32), None),
+    }
+    out = {}
+    n = 64
+    for (tl, th), (g, tabs, tgt, msk, first) in states.items():
+        ops = PivotOperands(g, tl, th, [], tabs, tgt, msk, dev)
+        descs = torch.from_numpy(ops.descs).to(dev)
+        t0 = ops.t_real // 2 if first is None else first
+        args = (*ops.stream_args()[:6], descs)
+        one = tuple(x[None] for x in args)
+        k1 = lambda a=args, t0=t0, te=ops.t_real, tl=tl, th=th: (  # noqa: E731
+            pivot_tile.pivot_window(*a, t0, n, te, tl, th))
+        lanes = lambda a=one, t0=t0, te=ops.t_real, tl=tl, th=th: (  # noqa: E731
+            pivot_tile.pivot_window_lanes(*a, [t0], n, [te], tl, th))
+        got, want = lanes(), k1()
+        compare(f"K1 lane form at one lane vs K1, {n} tiles of {tl}x{th} "
+                f"(G={g})", tuple(x[0] for x in got), want)
+        turns = [time_ms(f, 20) for f in (k1, lanes, lanes, k1)]
+        r = {"k1_ms": (turns[0] + turns[3]) / 2, "lanes_ms": (turns[1] + turns[2]) / 2,
+             "turns_ms": turns,
+             "k1_device_ms": kernel_device_ms(k1, "pivot_window_kernel", reps=10),
+             "lanes_device_ms": kernel_device_ms(lanes, "pivot_window_lanes_kernel",
+                                                 reps=10),
+             "tiles": n, "shape": f"1 lane x {n} tiles of {tl}x{th} (G={g})"}
+        out[(tl, th)] = r
+        log(f"  11e one lane, {n} tiles of {tl}x{th} (G={g}): K1 window "
+            f"{r['k1_ms']:.4f} ms (device {r['k1_device_ms']}), lane form "
+            f"{r['lanes_ms']:.4f} ms (device {r['lanes_device_ms']}); turns "
+            f"{', '.join(f'{t:.4f}' for t in turns)} ms")
+    return out
+
+
 def lane_pivot_operands(dev, i: int):
     """PivotOperands of lane ``i`` of 11e's K1 check: G = 99 - i % 3 gates
     of ``random_state(g, 11 + i)`` (lane 0 is phase 4a's state), the
@@ -2063,10 +2195,13 @@ def parity_lanes(dev) -> dict:
     mask.  K1: 256 x 512 tiles of G = 97-99 planted states, lane 0 phase
     4a's, every lane its own state, target, exclusion and so pair cells,
     validity and descriptors (:func:`lane_pivot_operands`), at its own
-    window (8 lanes x 8 tiles, 64 lanes x 1 tile), ragged: lanes cut by
-    their t_end, done lanes (t0 = t_end) and two lanes at their planted
-    hit's tile.  The bound counts the tiles
-    the lanes sweep.  Then the host syncs of one merged round
+    window (8 lanes x 8 tiles, 64 lanes x 1 tile, and 16 lanes x 4 tiles
+    of 203 x 301, whose rows end inside the kernel's blocks of 32 low and
+    128 high rows and inside a warp's 16), ragged: lanes cut by their t_end
+    (their last slots inert), done lanes (t0 = t_end) and two lanes at
+    their planted hit's tile.  The bound counts the tiles the lanes sweep.
+    Then K1's lane form at one lane beside K1
+    (:func:`one_lane_beside_k1`) and the host syncs of one merged round
     (:func:`round_syncs`)."""
     import numpy as np
     import torch
@@ -2075,6 +2210,7 @@ def parity_lanes(dev) -> dict:
     from sboxgates_tpu_torch.ops import lut5_filter, pivot_tile, sweeps
     from sboxgates_tpu_torch.search.lut import PivotOperands
 
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(88)
     out = {}
     attr = attribution()
@@ -2105,10 +2241,12 @@ def parity_lanes(dev) -> dict:
         )
         out[("lut5_filter_lanes", lanes)] = r
 
-    tl, th = 256, 512
     planted = [lane_pivot_operands(dev, i) for i in range(64)]
     hits = planted_hits(dev, planted[:8])
-    for lanes, width in ((8, 8), (64, 1)):
+    secs = {}
+    for lanes, width, tl, th, key in ((8, 8, 256, 512, 8), (64, 1, 256, 512, 64),
+                                      (16, 4, 203, 301, "edge")):
+        t_shape = time.perf_counter()
         ops = planted[:lanes]
         real = [o.t_real for o in ops]
         descs = torch.zeros((lanes, max(real), 5), dtype=torch.int32)
@@ -2147,7 +2285,8 @@ def parity_lanes(dev) -> dict:
             lanes=lanes, tiles=active,
             **attr.window_lanes_cost(active, lanes * width, tl, th),
         )
-        out[("pivot_window_lanes", lanes)] = r
+        out[("pivot_window_lanes", key)] = r
+        secs[key] = time.perf_counter() - t_shape
     for (name, lanes), r in out.items():
         b_ms, b_by, b_form = bound(r)
         dms = r["device_ms"]
@@ -2155,7 +2294,14 @@ def parity_lanes(dev) -> dict:
             f"{'not in the trace' if dms is None else f'{dms:.4f} ms'}), the "
             f"same lanes as single-lane launches {r['single_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {b_ms:.5f} ms by {b_by} ({b_form})")
+    t_one = time.perf_counter()
+    out["one_lane"] = one_lane_beside_k1(dev)
+    secs["one lane"] = time.perf_counter() - t_one
     out["syncs"] = round_syncs(dev, planted[:8], hits)
+    log("  11e seconds: K1's lane form " + ", ".join(
+        f"{k if isinstance(k, str) else f'{k} lanes'} {v:.1f} s"
+        for k, v in secs.items())
+        + f"; the phase {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3632,6 +3778,7 @@ def main() -> int:
         else:
             phase_rounds(dev, counted_path, extended=True)
         return 0
+    probe = phase_tc_probe(dev)
     log("phase 2 parity")
     par = phase_parity(dev)
     # Phase 11e, the lane forms against their plain versions, beside the
@@ -3732,7 +3879,7 @@ def main() -> int:
             raise AssertionError(f"gate mode launched a kernel of K1-K5: {paths[path]}")
     if any(c["pivot_tile"] or c["pivot_pre_tile"] for c in paths.values()):
         raise AssertionError("a search path launched a single-tile K1 or K2")
-    report(dev, paths, par, lanes_par, rates, placement, **res)
+    report(dev, paths, par, lanes_par, probe, rates, placement, **res)
     return 0
 
 
@@ -3822,14 +3969,18 @@ def after_gate_phases(dev, paths: dict, par: dict) -> dict:
             "fleet_candidates": fleet_cands}
 
 
-def report(dev, paths, par, lanes_par, rates, placement, mesh, fleet_shards,
-           fleet_candidates):
+def report(dev, paths, par, lanes_par, probe, rates, placement, mesh,
+           fleet_shards, fleet_candidates):
     """The kernels' JSON line, the card's line and the result line."""
     import torch
 
     for name in LANE_KERNELS:
         par[name] = dict(lanes_par[(name, 8)])
-        par[name]["also"] = [lanes_par[(name, 64)]]
+        par[name]["also"] = [lanes_par[k] for k in ((name, 64), (name, "edge"))
+                             if k in lanes_par]
+    par["pivot_window_lanes"]["tc_probe"] = probe
+    par["pivot_window_lanes"]["one_lane_beside_k1"] = {
+        f"{tl}x{th}": r for (tl, th), r in lanes_par["one_lane"].items()}
 
     kernels = []
     for name, (route, source, replaces, home) in (KERNELS | LANE_KERNELS).items():
@@ -3877,7 +4028,8 @@ def report(dev, paths, par, lanes_par, rates, placement, mesh, fleet_shards,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_formulation": bound_form,
             "library_ms": None, "shape": r["shape"], "also": also,
-        } | ({"gemm_only_ms": r["gemm_only_ms"]} if "gemm_only_ms" in r else {})
+        } | {k: r[k] for k in ("gemm_only_ms", "tc_probe", "one_lane_beside_k1")
+             if k in r}
           | ({"single_lane_ms": r["single_ms"]} if "single_ms" in r else {})
           | ({"job_shard_launches_by_path": {
               p: by[name] for f in (fleet_shards, fleet_candidates)

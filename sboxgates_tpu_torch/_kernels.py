@@ -84,6 +84,9 @@ _SIGNATURES = {
     # prog, n_prog, n_in, out_slots, n_out, inputs, w, out, threads, smem,
     # stream, ev0, ev1
     "sbgt_circuit_eval": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
+    # kind, blocks, iters, sink, issued (host int64), stream
+    # torchlint: ignore[R7] the tensor-core rate probe (csrc/tc_probe.cu): chip_smoke.py launches it to read the card's 1-bit and int8 rates (the measured peak of telemetry/attribution.py); no search path runs it
+    "sbgt_tc_probe": [_I, _I, _I, _P, _P, _P],
 }
 
 

@@ -36,11 +36,8 @@
 // operations per candidate to the body's 576.
 //
 // The lane form (sbgt_pivot_window_lanes) sweeps the windows of many
-// search jobs in one launch, the lane flattened into the grid's third
-// axis (z = lane * n + tile): each lane reads its own tables, cell words,
-// validity and descriptors through lane strides and its own t0 and t_end
-// from the card, so jobs at different tiles share the launch.  Its bound
-// is the lanes' summed work.
+// search jobs in one launch; it has a body of its own, on the 1-bit tensor
+// cores (its note is above pivot_window_lanes_kernel below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -260,14 +257,97 @@ pivot_window_kernel(const uint32_t* __restrict__ tables,
                req0 + tile_off, feas + tile_off, counts + z);
 }
 
-// The lane form: blockIdx.z = lane * n + tile.  Lane l has its own
-// tables, cell words, validity and descriptors (each operand's lane
-// stride in elements: tab_lane, l_lane, h_lane, valid_lane, desc_lane) and
-// its own window [t0[l], t0[l] + n) cut at t_end[l]; a lane with
-// t0 >= t_end (done, or past its last tile) writes all-ones words and no
-// feasible candidate, as a tile past t_end does.  Outputs [lanes][n][tl][th]
-// and counts [lanes][n].
-__global__ void __launch_bounds__(kBH)
+// ---------------------------------------------------------------------------
+// K1's lane form on the 1-bit tensor cores.
+//
+// Replaces K1's TPU kernel (sboxgates_tpu/ops/pallas_pivot.py:133) under a
+// job axis: the window of every lane (search job) of a fleet in one launch,
+// lane l with its own tables, cell words, validity and descriptors (lane
+// strides tab_lane, l_lane, h_lane, valid_lane, desc_lane) and its own
+// window [t0[l], t0[l] + n) cut at t_end[l]; its outputs are the window
+// kernel's, word for word.
+//
+// Bound on the H100.  The AND-OR chain of window_block spends 576 + 4
+// integer operations per candidate, and the lane form on it ran at 81% of
+// that wall (PERF.md §6).  Here each verdict bit is one 1-bit tensor-core
+// test: popc(L[j][l] & PM_s & H[c2][h]) over the 256 positions of a table
+// is what mma.sync.m16n8k256.b1.and.popc computes for 16 x 8 (row, column)
+// pairs, 128 tests per instruction, from the packed words as they are (K =
+// 256 bits = one row's 8 words; nothing is expanded).  The tensor cores
+// take these at 8x their int8 rate (the probe, csrc/tc_probe.cu), so the
+// bound is the 9 bytes a candidate writes; what holds the kernel is the
+// integer pipe's one operation per test that turns a count into its bit
+// (64 per candidate against 580), which on this card does not overlap the
+// products (PERF.md §6).  (K2 expanded bits to int8 lanes and lost
+// to K1: its fragment loads and masks per item, not the tensor pipe, held
+// it.)
+//
+// Design.
+//   - A fragment (M = 16 high rows of one cell c2 per warp): thread (g, t)
+//     holds words t and t + 4 of rows g and g + 8, loaded once per block by
+//     ldmatrix.x4 and kept in registers for all c2 (16 registers).
+//   - B fragment (N = 8 columns, n = 2 l' + s: four low rows of one (req,
+//     j), each at both pivot polarities): lane (g, t) holds words t and t + 4
+//     of column g.  The block stages every low row twice, ANDed with ~pm
+//     (s = 0) and pm (s = 1) of its tile's pivot table tables[m], so one
+//     ldmatrix.x4 loads two j of a req and nothing is masked per product.
+//   - Accumulators: D = count - 1 (C = -1), so a lane's c0..c3 are the
+//     cells (h = g, s = 0 / 1) and (h = g + 8, s = 0 / 1) of its two
+//     candidates, both at low row l' = t.  D is all-ones or below 256, so
+//     each of its bytes 1-3 is 0xff or 0 ("count == 0"): one AND with the
+//     cell's bit places it (bit 8 j + 4 s + c2; cells of j = 0 go to byte 1
+//     of a second word, moved down once), and the words are inverted once.
+//     No shuffle, no ballot, no order among the products.  Both req run from
+//     the same A fragments, so each lane ends with req1 and req0 of its
+//     candidates and the fused epilogue (validity, (req1 & req0) == 0,
+//     feasible flag, the tile's count by ballot and one atomicAdd per block)
+//     runs on its own words.
+//   - Block: 8 warps own 128 high rows x 32 low rows of one tile slot (z =
+//     lane * n + tile on the grid's third axis).  The rows (32 KB, 32 B
+//     each; the two 16-byte halves of a row swapped on every other group of
+//     four rows, so that ldmatrix reads no bank twice) arrive by cp.async
+//     (high) and 16-byte loads (low), rows past the tile's edge zero.
+//     Stores: a warp writes 4 low rows x 32 contiguous bytes per
+//     instruction.  128 registers, 2 blocks per SM: more blocks (fewer
+//     registers), 4 warps a block, 64 low rows a block or split chains
+//     were not faster on the card.
+//   - A slot at or past its lane's t_end (done lanes, cut windows) reads no
+//     descriptor and writes all-ones words and no feasible candidate.
+constexpr int kLThreads = 256;             // 8 warps
+constexpr int kLWarps = kLThreads / 32;
+constexpr int kLH = 16 * kLWarps;          // high rows per block
+constexpr int kLL = 32;                    // low rows per block
+constexpr int kLHRows = 4 * kLH;           // staged high rows [c2][h]
+constexpr int kLRows = kLHRows + 16 * kLL; // then low rows [req][j][l][s]
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte half c of staged row r (32 B rows, halves swapped
+// on odd groups of four rows: an 8 x 16 B ldmatrix phase hits 32 banks).
+__device__ __forceinline__ uint32_t lrow_off(int r, int c) {
+  return (uint32_t)(r * 32 + ((c ^ ((r >> 2) & 1)) << 4));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d = popc(A & B) - 1 over K = 256 bits, for the 16 x 8 block.
+__device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(-1));
+}
+
+__global__ void __launch_bounds__(kLThreads, 2)
 pivot_window_lanes_kernel(
     const uint32_t* __restrict__ tables, int tab_lane,
     const uint32_t* __restrict__ l1, const uint32_t* __restrict__ l0,
@@ -278,17 +358,168 @@ pivot_window_lanes_kernel(
     const int32_t* __restrict__ t0, const int32_t* __restrict__ t_end, int n,
     int tl, int th, uint32_t* __restrict__ req1, uint32_t* __restrict__ req0,
     uint8_t* __restrict__ feas, int32_t* __restrict__ counts) {
+  __shared__ __align__(128) unsigned char rows[kLRows * 32];
+  __shared__ int lvalid[kLL];
+  __shared__ int warp_count[kLWarps];
   const int z = blockIdx.z;
-  const int lane = z / n;
+  const int job = z / n;
+  const int t = t0[job] + z % n;
   const size_t tile_off = (size_t)z * tl * th;
-  window_block(tables + (size_t)lane * tab_lane, l1 + (size_t)lane * l_lane,
-               l0 + (size_t)lane * l_lane, lstride,
-               hcs + (size_t)lane * h_lane, hstride,
-               lowvalid + (size_t)lane * valid_lane,
-               highvalid + (size_t)lane * valid_lane,
-               descs + (size_t)lane * desc_lane, t0[lane] + z % n, t_end[lane],
-               tl, th, req1 + tile_off, req0 + tile_off, feas + tile_off,
-               counts + z);
+  req1 += tile_off;
+  req0 += tile_off;
+  feas += tile_off;
+  const int lo_base = blockIdx.y * kLL, hi_base = blockIdx.x * kLH;
+  if (t >= t_end[job]) {  // block-uniform: an inert slot
+    for (int i = threadIdx.x; i < kLL * kLH; i += kLThreads) {
+      const int lo = lo_base + i / kLH, h = hi_base + i % kLH;
+      if (lo < tl && h < th) {
+        const size_t o = (size_t)lo * th + h;
+        req1[o] = 0xffffffffu;
+        req0[o] = 0xffffffffu;
+        feas[o] = 0;
+      }
+    }
+    return;
+  }
+  const int* d = descs + (size_t)job * desc_lane + (size_t)t * 5;
+  const int m = d[0], lo0 = d[1], lo_end = d[2], hi0 = d[3], hi_end = d[4];
+  lowvalid += (size_t)job * valid_lane;
+  highvalid += (size_t)job * valid_lane;
+
+  // Stage the block's rows: high [c2][h] by cp.async, then low
+  // [req][j][l][s] with the pivot polarity applied (s = 0: ~pm, 1: pm),
+  // 2 halves each.
+  const uint32_t base = smem_u32(rows);
+  const uint32_t* pmw = tables + (size_t)job * tab_lane + (size_t)m * kWords;
+  {
+    const uint32_t* hsrc = hcs + (size_t)job * h_lane;
+    for (int i = threadIdx.x; i < kLHRows * 2; i += kLThreads) {
+      const int r = i >> 1, c = i & 1;
+      const int h = hi_base + r % kLH;
+      const bool valid = h < th;
+      const uint32_t* src = hsrc + (size_t)(r / kLH) * hstride +
+                            (size_t)(hi0 + (valid ? h : 0)) * kWords + 4 * c;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       base + lrow_off(r, c)),
+                   "l"(src), "r"(valid ? 16 : 0));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    const uint32_t* l1src = l1 + (size_t)job * l_lane;
+    const uint32_t* l0src = l0 + (size_t)job * l_lane;
+    for (int i = threadIdx.x; i < 8 * kLL * 2; i += kLThreads) {
+      const int c = i & 1, pl = (i >> 1) / kLL;  // pl = req * 4 + j
+      const int l = (i >> 1) % kLL, lo = lo_base + l;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (lo < tl)
+        v = __ldg(reinterpret_cast<const uint4*>(
+            ((pl >> 2) ? l0src : l1src) + (size_t)(pl & 3) * lstride +
+            (size_t)(lo0 + lo) * kWords + 4 * c));
+      const uint4 p = __ldg(reinterpret_cast<const uint4*>(pmw) + c);
+      const int r = kLHRows + (pl * kLL + l) * 2;
+      *reinterpret_cast<uint4*>(rows + lrow_off(r, c)) =
+          make_uint4(v.x & ~p.x, v.y & ~p.y, v.z & ~p.z, v.w & ~p.w);
+      *reinterpret_cast<uint4*>(rows + lrow_off(r + 1, c)) =
+          make_uint4(v.x & p.x, v.y & p.y, v.z & p.z, v.w & p.w);
+    }
+  }
+  if (threadIdx.x < kLL) {
+    const int lo = lo_base + threadIdx.x;
+    lvalid[threadIdx.x] =
+        lo < tl && lo0 + lo < lo_end && lowvalid[lo0 + lo] != 0;
+  }
+  const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = ln >> 2, q = ln & 3;
+  // This lane's candidates: high rows hr[0] = g and hr[1] = g + 8 of the
+  // warp's 16, each at low row q of every group of four.
+  int hr[2];
+  bool hok[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    hr[half] = hi_base + 16 * warp + g + 8 * half;
+    hok[half] = hr[half] < th && hi0 + hr[half] < hi_end &&
+                highvalid[hi0 + hr[half]] != 0;
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  uint32_t af[4][4];  // [c2]: the warp's 16 high rows
+#pragma unroll
+  for (int c2 = 0; c2 < 4; ++c2)
+    ldsm_x4(af[c2], base + lrow_off(c2 * kLH + 16 * warp + (ln & 15), ln >> 4));
+
+  // B: matrices (j = 2 jp, half 0), (2 jp, 1), (2 jp + 1, 0), (2 jp + 1, 1)
+  // of a req; lane ln gives row ln & 7 of matrix ln >> 3, column n = 2 l' +
+  // s = staged row 8 qd + n of the plane.  [req][jp], quad 0 (a quad's rows
+  // are 256 B further on: its halves are swapped as quad 0's).
+  uint32_t baddr[2][2];
+#pragma unroll
+  for (int rq = 0; rq < 2; ++rq)
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp)
+      baddr[rq][jp] =
+          base + lrow_off(kLHRows + (rq * 4 + 2 * jp + (ln >> 4)) * 2 * kLL +
+                              (ln & 7),
+                          (ln >> 3) & 1);
+
+  int count = 0;
+  for (int qd = 0; qd < kLL / 4; ++qd) {
+    const int lo = lo_base + 4 * qd + q;
+    if (lo_base + 4 * qd >= tl) break;  // block-uniform
+    uint32_t words[2][2];  // [req][half]
+#pragma unroll
+    for (int rq = 0; rq < 2; ++rq) {
+      uint32_t bf[2][4];  // [jp]: b0, b1 of j = 2 jp, then of j = 2 jp + 1
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) ldsm_x4(bf[jp], baddr[rq][jp] + 256 * qd);
+      // "count == 0" flags: D = count - 1 is all-ones or below 256, so its
+      // bytes 1-3 are each 0xff or 0 and one AND places a cell's flag.
+      // Cells of j = 1-3 go to their own byte of zf, those of j = 0 to byte
+      // 1 of zf0, moved down once.  [half]
+      uint32_t zf[2] = {0u, 0u}, zf0[2] = {0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int c2 = 0; c2 < 4; ++c2) {
+          int acc[4];
+          mma_b1(acc, af[c2], bf[j >> 1][2 * (j & 1)],
+                 bf[j >> 1][2 * (j & 1) + 1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {  // (half, s) = (i >> 1, i & 1)
+            const uint32_t m = 1u << ((j ? j : 1) * 8 + (i & 1) * 4 + c2);
+            if (j)
+              zf[i >> 1] |= (uint32_t)acc[i] & m;
+            else
+              zf0[i >> 1] |= (uint32_t)acc[i] & m;
+          }
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        words[rq][half] = ~(zf[half] | (zf0[half] >> 8));
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const bool in = (lo < tl) & (hr[half] < th);
+      const uint32_t r1 = words[0][half], r0 = words[1][half];
+      const bool f = in & hok[half] & (lvalid[4 * qd + q] != 0) &
+                     ((r1 & r0) == 0u);
+      count += __popc(__ballot_sync(0xffffffffu, f));
+      if (in) {
+        const size_t o = (size_t)lo * th + hr[half];
+        req1[o] = r1;
+        req0[o] = r0;
+        feas[o] = f ? 1 : 0;
+      }
+    }
+  }
+  if (ln == 0) warp_count[warp] = count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < kLWarps; ++i) sum += warp_count[i];
+    if (sum) atomicAdd(counts + z, sum);
+  }
 }
 
 }  // namespace
@@ -351,8 +582,8 @@ extern "C" int sbgt_pivot_window_lanes(
       counts, 0, (size_t)lanes * n * sizeof(int32_t), s);
   if (e == cudaSuccess) e = sbgt_record(ev0, s);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((th + kBH - 1) / kBH, (tl + kBL - 1) / kBL, lanes * n);
-  pivot_window_lanes_kernel<<<grid, kBH, 0, s>>>(
+  const dim3 grid((th + kLH - 1) / kLH, (tl + kLL - 1) / kLL, lanes * n);
+  pivot_window_lanes_kernel<<<grid, kLThreads, 0, s>>>(
       (const uint32_t*)tables, tab_lane, (const uint32_t*)l1,
       (const uint32_t*)l0, lstride, l_lane, (const uint32_t*)hcs, hstride,
       h_lane, (const uint8_t*)lowvalid, (const uint8_t*)highvalid, valid_lane,

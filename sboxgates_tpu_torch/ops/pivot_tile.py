@@ -17,7 +17,9 @@ with the required positions), the pivot polarity s and the high pair's
 cell c2 share a position.  K2 counts those intersections with int8 matrix
 products on the tensor cores and tests ``> 0``, as the TPU kernels do;
 K1 evaluates the same predicate as an AND-OR chain on the integer pipe,
-with no count matrix.  Bounds on the H100: K2 by int8 tensor-core
+with no count matrix; K1's lane form (:func:`pivot_window_lanes`) counts
+on the 1-bit tensor cores (AND + POPC over a table's 256 bits, straight
+from the packed words).  Bounds on the H100: K2 by int8 tensor-core
 operations, K1 by 32-bit logic operations (about 580 per candidate against
 8 B of output); see the sources' headers for the designs.
 
@@ -448,7 +450,9 @@ def pivot_window_lanes_plain(tables, lc1, lc0, hc, lowvalid, highvalid, descs,
 def pivot_window_lanes(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0,
                        n, t_end, tl, th, out=None):
     """K1's lane form: one launch sweeps a window of ``n`` tiles of every
-    lane (``csrc/pivot_tile.cu``, ``sbgt_pivot_window_lanes``).
+    lane (``csrc/pivot_tile.cu``, ``sbgt_pivot_window_lanes``: each verdict
+    bit one 1-bit AND + POPC test on the tensor cores, the words 16-byte
+    aligned on the card).
 
     Lane l is :func:`pivot_window` over its own operands — ``tables``
     int32[L, B, 8], ``lc1``/``lc0``/``hc`` int32[L, 4, P, 8],
@@ -467,6 +471,8 @@ def pivot_window_lanes(tables, lc1, lc0, hc, lowvalid, highvalid, descs, t0,
             raise ValueError(f"{name} must be contiguous int32 on {dev}")
         if t.shape[-1] != 8 or t.shape[0] != lanes:
             raise ValueError(f"{name} must be [lanes, ..., 8]")
+        if t.is_cuda and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if lc1.shape != lc0.shape or lc1.shape[1] != 4 or hc.shape[1] != 4:
         raise ValueError("lc1/lc0/hc must be [lanes, 4, rows, 8]")
     for name, t in (("lowvalid", lowvalid), ("highvalid", highvalid)):

@@ -50,17 +50,23 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 #: Peak rates the rows are drawn against.  ``gpu``: NVIDIA H100 SXM
-#: data-sheet peaks, not measurements — HBM3 at 3.35 TB/s; 32-bit integer
-#: logic (LOP3) at 64 results per SM per clock on compute capability 9.0
-#: (CUDA C++ Programming Guide, arithmetic instruction throughput) over 132
-#: SMs at the 1.98 GHz boost clock; int8 tensor-core operations at 1,979
-#: T/s (dense).  ``cpu``: a round envelope for the CPU plain versions,
-#: which tests run; not a tuning target.
+#: data-sheet peaks — HBM3 at 3.35 TB/s; 32-bit integer logic (LOP3) at 64
+#: results per SM per clock on compute capability 9.0 (CUDA C++
+#: Programming Guide, arithmetic instruction throughput) over 132 SMs at
+#: the 1.98 GHz boost clock; int8 tensor-core operations at 1,979 T/s
+#: (dense) — and one measured rate: NVIDIA publishes no 1-bit tensor-core
+#: rate for Hopper, so ``b1_tc_ops_per_s`` is the tensor-core probe's
+#: reading (``csrc/tc_probe.cu``, run by ``chip_smoke.py``: wgmma
+#: m64n128k256 .b1 AND + POPC, the fastest 1-bit form it times, counted as
+#: 2 M N K operations) on an "NVIDIA H100 80GB HBM3" at a 700.00 W power
+#: limit.  ``cpu``: a round envelope for the CPU plain versions, which
+#: tests run; not a tuning target.
 PEAKS: Dict[str, Dict[str, float]] = {
     "gpu": {
         "bytes_per_s": 3.35e12,
         "int32_ops_per_s": 64 * 132 * 1.98e9,
         "int8_tc_ops_per_s": 1.979e15,
+        "b1_tc_ops_per_s": 1.5187e16,
     },
     "cpu": {
         "bytes_per_s": 5.0e10,
@@ -100,8 +106,9 @@ def window_cost(n: int, tl: int, th: int, backend: str) -> dict:
     lanes on pre, and validity bytes in; 9 B per candidate and a count out.
     Operations, one per formulation of the same function: K1's 576 AND-OR
     and pack steps and 4 of the fused epilogue per candidate on the integer
-    pipe (``ops``), and the TPU's two int8 GEMMs per tile,
-    2 x 2 x (8 tl) x (4 th) x 256, on the tensor cores (``tc_ops``)."""
+    pipe (``ops``), and the TPU's two GEMMs per tile, 2 x 2 x (8 tl) x
+    (4 th) x 256, on the tensor cores (``tc_ops``: int8 multiply-adds over
+    0/1 lanes, or as many 1-bit AND + POPC ones over the packed words)."""
     cand = tl * th
     row = 32 if backend == "packed" else 256
     per_tile_in = 20 + 32 + tl * 2 * 4 * row + th * 4 * row + tl + th
@@ -164,16 +171,20 @@ def bound(cost: dict, pk: Optional[Dict[str, float]] = None):
     """(bound_ms, bound_by, formulation) of one launch's ``cost``: the
     least time the card could take, the larger of its bytes over the memory
     rate and its operations over their peak rate.  Where the same function
-    has two formulations (the pivot tile: 32-bit logic on the integer pipe,
-    or the TPU's int8 GEMMs on the tensor cores, ``tc_ops``), each is taken
-    with the bytes and the smaller bound is the launch's.  ``pk`` defaults
-    to the H100 peaks."""
+    has several formulations (the pivot tile: 32-bit logic on the integer
+    pipe, or its GEMMs on the tensor cores, ``tc_ops``, in int8 and, where
+    ``pk`` has a ``b1_tc_ops_per_s``, in 1-bit AND + POPC), each is taken
+    with the bytes and the smallest bound is the launch's.  ``pk``
+    defaults to the H100 peaks."""
     pk = pk or PEAKS["gpu"]
     t_bytes = cost["bytes"] / pk["bytes_per_s"] * 1e3
     forms = [(cost["ops"] / pk["int32_ops_per_s"] * 1e3, "integer pipe")]
     if "tc_ops" in cost:
         forms.append((cost["tc_ops"] / pk["int8_tc_ops_per_s"] * 1e3,
                       "int8 tensor cores"))
+        if "b1_tc_ops_per_s" in pk:
+            forms.append((cost["tc_ops"] / pk["b1_tc_ops_per_s"] * 1e3,
+                          "1-bit tensor cores"))
     t_ops, form = min(forms)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             form)

@@ -227,6 +227,49 @@ def test_cuda_pivot_window_lanes_matches_plain(width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tl,th", [(203, 301), (256, 512)])
+def test_cuda_pivot_window_lanes_64_lanes_match_plain(tl, th):
+    """K1's lane form at 64 lanes of 4 tiles against its plain version, at
+    the sweep's 256 x 512 and at 203 x 301, whose rows end inside the
+    kernel's blocks (32 low, 128 high rows) and inside a warp's 16 high
+    rows: every lane its own planted state (G = 48-50, every seventh with
+    an excluded pivot), ragged (lanes cut by their t_end, so their last
+    slots are inert; done lanes; one lane at its planted hit's tile), one
+    launch."""
+    dev = _cuda()
+    lanes, width = 64, 4
+    ops = [_planted_pivot(dev, excl=(5,) if i % 7 == 3 else (), seed=5 + i,
+                          g=50 - i % 3) for i in range(lanes)]
+    _, w_tab, m_tab = sweeps.lut5_split_tables()
+    hit = int(sweeps.lut5_pivot_stream(
+        *ops[1].stream_args(), 0, ops[1].t_real, sweeps.as_words(w_tab, dev),
+        sweeps.as_words(m_tab, dev), 7, tl=256, th=512)[8]) - 1
+    pad = lambda j: sweeps._pad_rows(  # noqa: E731
+        [o.stream_args()[j] for o in ops], 1 if j < 4 else 0)
+    real = [o.t_real for o in ops]
+    descs = torch.zeros((lanes, max(real), 5), dtype=torch.int32)
+    for i, o in enumerate(ops):
+        descs[i, : real[i]] = torch.from_numpy(o.descs)
+    args = (pad(0), pad(1), pad(2), pad(3), pad(4), pad(5), descs.to(dev))
+    t0 = [(7 * i) % (real[i] - 1) for i in range(lanes)]
+    t_end = list(real)
+    for i in range(0, lanes, 4):
+        t_end[i] = t0[i] + 2                                   # cut
+    for i in range(2, lanes, 5):
+        t0[i] = t_end[i]                                       # done
+    t0[1] = hit
+    before = pivot_tile.launches["lanes"]
+    got = pivot_tile.pivot_window_lanes(*args, t0, width, t_end, tl, th)
+    assert pivot_tile.launches["lanes"] == before + 1
+    want = pivot_tile.pivot_window_lanes_plain(*args, t0, width, t_end, tl, th)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    if (tl, th) == (256, 512):
+        assert int(got[3][1].sum()) > 0
+    assert int(got[3][2].sum()) == 0 and bool((got[0][0, 2:] == -1).all())
+
+
+@pytest.mark.cuda
 def test_cuda_pivot_stream_lanes_match_cpu():
     """The lanes' pivot sweeps on the card (K1's lane form) give the CPU's
     verdicts, and the single-lane sweeps'."""

@@ -482,13 +482,20 @@ def _old_walsh_cost(b, sms):
             "ops": blocks * (8 * 256 + 8192) + b * 64}
 
 
-def _old_bound(r):
+def _old_bound(r, b1_ops_per_s=None):
     t_bytes = r["bytes"] / 3.35e12 * 1e3
     forms = [(r["ops"] / (64 * 132 * 1.98e9) * 1e3, "integer pipe")]
     if "tc_ops" in r:
         forms.append((r["tc_ops"] / 1.979e15 * 1e3, "int8 tensor cores"))
+        if b1_ops_per_s:
+            forms.append((r["tc_ops"] / b1_ops_per_s * 1e3, "1-bit tensor cores"))
     t_ops, form = min(forms)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", form)
+
+
+#: The H100 peaks without the measured 1-bit rate: the data-sheet peaks
+#: chip_smoke.py's formulas were written against.
+_DATA_SHEET = {k: v for k, v in tattr.PEAKS["gpu"].items() if k != "b1_tc_ops_per_s"}
 
 
 @pytest.mark.parametrize("n", [1, 64])
@@ -497,7 +504,49 @@ def _old_bound(r):
 def test_window_costs_equal_chip_smokes_formulas(n, shape, backend):
     got = tattr.window_cost(n, *shape, backend)
     assert got == _old_window_cost(n, *shape, backend)
-    assert tattr.bound(got) == _old_bound(got)
+    assert tattr.bound(got, _DATA_SHEET) == _old_bound(got)
+    assert tattr.bound(got) == _old_bound(got, tattr.PEAKS["gpu"]["b1_tc_ops_per_s"])
+
+
+@pytest.mark.parametrize("form", ["integer pipe", "int8 tensor cores",
+                                  "1-bit tensor cores"])
+def test_bound_takes_the_smallest_of_three_forms(form):
+    """The same work counted three ways (32-bit logic, int8 and 1-bit
+    tensor-core operations): the fastest form sets the bound."""
+    key = {"integer pipe": "int32_ops_per_s",
+           "int8 tensor cores": "int8_tc_ops_per_s",
+           "1-bit tensor cores": "b1_tc_ops_per_s"}[form]
+    pk = {"bytes_per_s": 1e12, "int32_ops_per_s": 1e9,
+          "int8_tc_ops_per_s": 2e9, "b1_tc_ops_per_s": 4e9}
+    pk[key] = 1e12
+    cost = {"bytes": 1.0, "ops": 3e9, "tc_ops": 6e9}
+    ms, by, got = tattr.bound(cost, pk)
+    assert got == form and by == "operations"
+    want = {"integer pipe": 3e9, "int8 tensor cores": 6e9,
+            "1-bit tensor cores": 6e9}[form] / 1e12 * 1e3
+    assert ms == pytest.approx(want)
+    # Bytes still win when they take longer than every form.
+    assert tattr.bound({**cost, "bytes": 1e13}, pk)[:2] == (1e4, "bytes")
+
+
+@pytest.mark.parametrize("n,slots", [(48, 64), (52, 64), (1, 1)])
+def test_bound_without_the_1bit_peak_is_todays(n, slots):
+    """A peaks row without ``b1_tc_ops_per_s`` (the CPU's, or the H100's
+    data-sheet rates alone) bounds K1's lane form as before the 1-bit
+    form; with the H100's measured 1-bit rate the form is taken, and at
+    the lane form's shapes the bytes then bound it."""
+    cost = tattr.window_lanes_cost(n, slots, 256, 512)
+    assert "b1_tc_ops_per_s" not in tattr.PEAKS["cpu"]
+    assert tattr.bound(cost, _DATA_SHEET) == _old_bound(cost)
+    assert tattr.bound(cost, _DATA_SHEET)[2] == "int8 tensor cores"
+    cpu = tattr.PEAKS["cpu"]
+    t_ops = min(cost["ops"] / cpu["int32_ops_per_s"],
+                cost["tc_ops"] / cpu["int8_tc_ops_per_s"]) * 1e3
+    assert tattr.bound(cost, cpu)[0] == max(cost["bytes"] / cpu["bytes_per_s"] * 1e3,
+                                            t_ops)
+    ms, by, form = tattr.bound(cost)
+    assert form == "1-bit tensor cores" and by == "bytes"
+    assert ms == cost["bytes"] / 3.35e12 * 1e3 < tattr.bound(cost, _DATA_SHEET)[0]
 
 
 @pytest.mark.parametrize("b", [64, 512, 1 << 20])
